@@ -1,0 +1,119 @@
+"""The CUDA kernels' arithmetic, checked on the CPU.
+
+csrc/field.cuh holds the field and point code every kernel runs, as
+__host__ __device__ functions.  Here plain g++ builds it (csrc/host_core.cpp,
+no torch headers) into a ctypes library under the port's git-ignored build
+directory, once per test run, and its montmul, add, add_if and double(k)
+are compared with the plain PyTorch versions on a few hundred elements,
+special cases included.  Tolerance: exact equality.  The plain versions are
+held against the JAX package in test_torch_field.py / test_torch_curve.py.
+"""
+
+import random
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from zksaas_tpu_torch import kernels
+from zksaas_tpu_torch.curves import point_ops
+from zksaas_tpu_torch.curves.curve import curve_g1, curve_g2
+from zksaas_tpu_torch.fields.field import field
+from zksaas_tpu_torch.fields.montmul import montmul_plain
+from zksaas_tpu_torch.fields.spec import BN254_FQ, BN254_FR
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def core():
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    return kernels.host_core()
+
+
+def _ptr(t):
+    return t.data_ptr()
+
+
+def _points(C, n, seed):
+    """n Jacobian points with random Z; P == Q, P == -Q and infinity on
+    either or both sides among them."""
+    rng = random.Random(seed)
+    pool = [C.ref.rand(rng) for _ in range(8)]
+    P = [pool[rng.randrange(8)] for _ in range(n)]
+    Q = [pool[rng.randrange(8)] for _ in range(n)]
+    for i in range(0, n, 10):
+        Q[i] = P[i]
+        Q[i + 1] = C.ref.neg(P[i + 1])
+        P[i + 2] = None
+        Q[i + 3] = None
+        P[i + 4] = Q[i + 4] = None
+
+    def jac(pts, s):
+        X, Y, Z = (c.clone() for c in C.encode(pts, device="cpu"))
+        gen = torch.Generator().manual_seed(s)
+        lam = C.R.F.rand(gen, (n,) + C.R.coord_shape[:-1], device="cpu")
+        lam2 = C.R.square(lam)
+        fin = ~C.is_inf((X, Y, Z))
+        sel = lambda new, old: C.R.select(fin, new, old)
+        return (sel(C.R.mul(X, lam2), X), sel(C.R.mul(Y, C.R.mul(lam2, lam)), Y),
+                sel(C.R.mul(Z, lam), Z))
+
+    return jac(P, seed + 1), jac(Q, seed + 2)
+
+
+@pytest.mark.parametrize("spec", [BN254_FR, BN254_FQ], ids=lambda s: s.name)
+def test_core_montmul_matches_plain(core, spec):
+    F = field(spec)
+    gen = torch.Generator().manual_seed(11)
+    a, b = F.rand(gen, (300,), device="cpu"), F.rand(gen, (300,), device="cpu")
+    a[0] = 0
+    b[1] = F.const(1, device="cpu")
+    out = torch.empty_like(a)
+    core.zkc_montmul(_ptr(a), _ptr(b), _ptr(out), 300, kernels.field_params(spec).ctypes.data)
+    assert torch.equal(out, montmul_plain(spec, a.long(), b.long()).int())
+
+
+@pytest.mark.parametrize("ncoord", [1, 2], ids=["g1", "g2"])
+@pytest.mark.parametrize("with_cond", [False, True], ids=["add", "add_if"])
+def test_core_add_matches_plain(core, ncoord, with_cond):
+    C = curve_g1() if ncoord == 1 else curve_g2()
+    n = 200
+    P, Q = _points(C, n, seed=20 + ncoord)
+    rng = np.random.default_rng(3)
+    cond = torch.from_numpy(rng.random(n) < 0.5) if with_cond else torch.ones(n, dtype=torch.bool)
+    out = tuple(torch.empty_like(P[0]) for _ in range(3))
+    core.zkc_point_add_if(
+        ncoord, *map(_ptr, (*P, *Q)), _ptr(cond), *map(_ptr, out), n,
+        kernels.field_params(C.spec).ctypes.data,
+    )
+    if with_cond:
+        ref = point_ops.point_add_if_plain(C.spec, ncoord, P, Q, cond)
+    else:
+        ref = point_ops.point_add_plain(C.spec, ncoord, P, Q)
+    for o, r in zip(out, ref):
+        assert torch.equal(o, r)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("ncoord", [1, 2], ids=["g1", "g2"])
+def test_core_double_matches_plain(core, ncoord, k):
+    C = curve_g1() if ncoord == 1 else curve_g2()
+    n = 100
+    P, _ = _points(C, n, seed=40 + ncoord)
+    out = tuple(torch.empty_like(P[0]) for _ in range(3))
+    core.zkc_point_double(
+        ncoord, *map(_ptr, P), *map(_ptr, out), n, k, kernels.field_params(C.spec).ctypes.data
+    )
+    for o, r in zip(out, point_ops.point_double_plain(C.spec, ncoord, P, k)):
+        assert torch.equal(o, r)
+
+
+def test_field_params_are_the_32bit_montgomery_constants():
+    prm = kernels.field_params(BN254_FQ)
+    p = sum(int(v) << (32 * i) for i, v in enumerate(prm[:8]))
+    one = sum(int(v) << (32 * i) for i, v in enumerate(prm[8:16]))
+    assert p == BN254_FQ.p and one == (1 << 256) % p
+    assert (int(prm[16]) * p) % (1 << 32) == (1 << 32) - 1  # n0 = -p^-1 mod 2^32

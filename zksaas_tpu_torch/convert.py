@@ -1,0 +1,122 @@
+"""Carry the dealer's outputs between the JAX package and the port.
+
+The JAX package keeps field elements as (..., K) uint32 arrays of 16-bit
+limbs; the port keeps the same values in int32 tensors.  Every limb is
+< 2^16, so the conversion is bit-equal both ways.  The functions here take
+numpy arrays (or anything np.asarray accepts) and duck-typed dataclass
+fields, so this module imports nothing of the JAX package: a test that
+holds both can hand the same CRS, shares and masks to both.
+
+  field arrays     to_torch / to_numpy
+  point tuples     points_to_torch / points_to_numpy
+  PackedProvingKeyShare, PackedQAPShare, FftMask, DegRedMask, MsmMask,
+  ProveMasks       *_from / *_to_numpy (a dict of the dataclass's fields)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .dist.deg_red import DegRedMask
+from .dist.dfft import FftMask
+from .dist.dmsm import MsmMask
+from .groth16.prove import ProveMasks
+from .groth16.proving_key import PackedProvingKeyShare
+from .groth16.qap import PackedQAPShare
+from .ntt.domain import domain
+
+
+def to_torch(a, device="cpu") -> torch.Tensor:
+    """uint32 limb array -> int32 tensor (values < 2^16, so bit-equal)."""
+    arr = np.asarray(a)
+    if arr.dtype != np.uint32:
+        raise TypeError(f"expected uint32 limbs, got {arr.dtype}")
+    if arr.size and int(arr.max()) >> 16:
+        raise ValueError("limbs must be < 2^16")
+    return torch.from_numpy(arr.astype(np.int32)).to(device)
+
+
+def to_numpy(t) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.uint32)
+
+
+def points_to_torch(P, device="cpu") -> tuple:
+    return tuple(to_torch(c, device) for c in P)
+
+
+def points_to_numpy(P) -> tuple:
+    return tuple(to_numpy(c) for c in P)
+
+
+_CRS_POINTS = ("s", "u", "w", "h", "v")
+_CRS_CLEAR = ("a_query0", "b_g1_query0", "b_g2_query0", "delta_g1", "delta_g2",
+              "alpha_g1", "beta_g1", "beta_g2")
+
+
+def crs_from(src, device="cpu") -> PackedProvingKeyShare:
+    kw = {k: points_to_torch(getattr(src, k), device) for k in _CRS_POINTS}
+    kw.update({k: getattr(src, k) for k in _CRS_CLEAR})
+    return PackedProvingKeyShare(**kw)
+
+
+def crs_to_numpy(crs: PackedProvingKeyShare) -> dict:
+    out = {k: points_to_numpy(getattr(crs, k)) for k in _CRS_POINTS}
+    out.update({k: getattr(crs, k) for k in _CRS_CLEAR})
+    return out
+
+
+def qap_from(src, spec, device="cpu") -> PackedQAPShare:
+    """src: a, b, c (n, m/l, K) arrays, num_inputs, num_constraints and a
+    domain whose size is src.dom.n."""
+    return PackedQAPShare(
+        num_inputs=src.num_inputs,
+        num_constraints=src.num_constraints,
+        a=to_torch(src.a, device),
+        b=to_torch(src.b, device),
+        c=to_torch(src.c, device),
+        dom=domain(spec, src.dom.n),
+    )
+
+
+def qap_to_numpy(q: PackedQAPShare) -> dict:
+    return dict(num_inputs=q.num_inputs, num_constraints=q.num_constraints,
+                a=to_numpy(q.a), b=to_numpy(q.b), c=to_numpy(q.c))
+
+
+def fft_mask_from(src, device="cpu") -> FftMask:
+    return FftMask(to_torch(src.in_mask, device), to_torch(src.out_mask, device))
+
+
+def degred_mask_from(src, device="cpu") -> DegRedMask:
+    return DegRedMask(to_torch(src.in_mask, device), to_torch(src.out_mask, device))
+
+
+def msm_mask_from(src, device="cpu") -> MsmMask:
+    return MsmMask(points_to_torch(src.in_mask, device), points_to_torch(src.out_mask, device))
+
+
+def prove_masks_from(src, device="cpu") -> ProveMasks:
+    return ProveMasks(
+        fft_masks=[fft_mask_from(m, device) for m in src.fft_masks],
+        degred_mask=degred_mask_from(src.degred_mask, device),
+        g1_msm_masks=[msm_mask_from(m, device) for m in src.g1_msm_masks],
+        g2_msm_mask=msm_mask_from(src.g2_msm_mask, device),
+    )
+
+
+def mask_to_numpy(mask) -> dict:
+    """FftMask, DegRedMask or MsmMask -> {in_mask, out_mask} as numpy."""
+    conv = points_to_numpy if isinstance(mask, MsmMask) else to_numpy
+    return {f.name: conv(getattr(mask, f.name)) for f in dataclasses.fields(mask)}
+
+
+def prove_masks_to_numpy(masks: ProveMasks) -> dict:
+    return dict(
+        fft_masks=[mask_to_numpy(m) for m in masks.fft_masks],
+        degred_mask=mask_to_numpy(masks.degred_mask),
+        g1_msm_masks=[mask_to_numpy(m) for m in masks.g1_msm_masks],
+        g2_msm_mask=mask_to_numpy(masks.g2_msm_mask),
+    )

@@ -1,0 +1,299 @@
+// Field and point arithmetic shared by the CUDA kernels (kernels.cu) and
+// the g++ host build used by the CPU tests (host_core.cpp).
+//
+// Replaces the in-kernel limb library of the JAX package
+// (zksaas_tpu/fields/kernel_lib.py::KernelField) and the point cores of
+// zksaas_tpu/curves/fused.py (_double_core, _add_core).
+//
+// An Fq element is 8 little-endian 32-bit limbs in Montgomery form.  The
+// tensors at the kernel boundary hold 16 16-bit limbs per element
+// (R = 2^256 either way), so limb pairs are packed on load and split on
+// store.  Every function returns the canonical residue (< p), so results
+// are bit-equal to the reference whatever the order of the carries.
+//
+// Only BN254 is instantiated here: 8 limbs for Fq/Fr and the Fq2
+// non-residue -1.  BLS12-381/377 (12 limbs, nr = -5) is a later slice.
+
+#pragma once
+#include <stdint.h>
+
+#if defined(__CUDACC__)
+#define ZK_HD __host__ __device__ __forceinline__
+#else
+#define ZK_HD inline
+#endif
+
+namespace zk {
+
+constexpr int NL = 8;  // 32-bit limbs per element
+
+// p, Montgomery one (R mod p) and n0 = -p^-1 mod 2^32, set by the host.
+struct FieldParams {
+    uint32_t p[NL];
+    uint32_t one[NL];
+    uint32_t n0;
+};
+
+struct Fq {
+    uint32_t v[NL];
+};
+
+ZK_HD Fq fq_zero() {
+    Fq r;
+#pragma unroll
+    for (int i = 0; i < NL; i++) r.v[i] = 0;
+    return r;
+}
+
+ZK_HD Fq fq_one(const FieldParams& F) {
+    Fq r;
+#pragma unroll
+    for (int i = 0; i < NL; i++) r.v[i] = F.one[i];
+    return r;
+}
+
+ZK_HD bool fq_is_zero(const Fq& a) {
+    uint32_t acc = 0;
+#pragma unroll
+    for (int i = 0; i < NL; i++) acc |= a.v[i];
+    return acc == 0;
+}
+
+// s (with carry bit `top` above limb NL-1) reduced once by p; s < 2p.
+ZK_HD Fq fq_reduce_once(const Fq& s, uint32_t top, const FieldParams& F) {
+    Fq d;
+    uint32_t br = 0;
+#pragma unroll
+    for (int i = 0; i < NL; i++) {
+        uint64_t t = (uint64_t)s.v[i] - F.p[i] - br;
+        d.v[i] = (uint32_t)t;
+        br = (uint32_t)(t >> 63);
+    }
+    return (top || !br) ? d : s;
+}
+
+ZK_HD Fq fq_add(const Fq& a, const Fq& b, const FieldParams& F) {
+    Fq s;
+    uint32_t c = 0;
+#pragma unroll
+    for (int i = 0; i < NL; i++) {
+        uint64_t t = (uint64_t)a.v[i] + b.v[i] + c;
+        s.v[i] = (uint32_t)t;
+        c = (uint32_t)(t >> 32);
+    }
+    return fq_reduce_once(s, c, F);
+}
+
+ZK_HD Fq fq_dbl(const Fq& a, const FieldParams& F) { return fq_add(a, a, F); }
+
+ZK_HD Fq fq_sub(const Fq& a, const Fq& b, const FieldParams& F) {
+    Fq d;
+    uint32_t br = 0;
+#pragma unroll
+    for (int i = 0; i < NL; i++) {
+        uint64_t t = (uint64_t)a.v[i] - b.v[i] - br;
+        d.v[i] = (uint32_t)t;
+        br = (uint32_t)(t >> 63);
+    }
+    if (br) {  // a < b: add p back (the carry out cancels the borrow)
+        uint32_t c = 0;
+#pragma unroll
+        for (int i = 0; i < NL; i++) {
+            uint64_t t = (uint64_t)d.v[i] + F.p[i] + c;
+            d.v[i] = (uint32_t)t;
+            c = (uint32_t)(t >> 32);
+        }
+    }
+    return d;
+}
+
+// CIOS Montgomery product a*b*2^-256 mod p.  Needs a*b < 2^256 * p, which
+// holds for canonical operands and for one raw operand < 2^256 times a
+// canonical one (Field.rand reduces raw limbs that way).
+ZK_HD Fq fq_mul(const Fq& a, const Fq& b, const FieldParams& F) {
+    uint32_t t[NL + 2];
+#pragma unroll
+    for (int i = 0; i < NL + 2; i++) t[i] = 0;
+#pragma unroll
+    for (int i = 0; i < NL; i++) {
+        uint64_t C = 0;
+#pragma unroll
+        for (int j = 0; j < NL; j++) {
+            uint64_t uv = (uint64_t)a.v[j] * b.v[i] + t[j] + C;
+            t[j] = (uint32_t)uv;
+            C = uv >> 32;
+        }
+        uint64_t uv = (uint64_t)t[NL] + C;
+        t[NL] = (uint32_t)uv;
+        t[NL + 1] = (uint32_t)(uv >> 32);
+        uint32_t m = t[0] * F.n0;
+        uv = (uint64_t)m * F.p[0] + t[0];
+        C = uv >> 32;
+#pragma unroll
+        for (int j = 1; j < NL; j++) {
+            uv = (uint64_t)m * F.p[j] + t[j] + C;
+            t[j - 1] = (uint32_t)uv;
+            C = uv >> 32;
+        }
+        uv = (uint64_t)t[NL] + C;
+        t[NL - 1] = (uint32_t)uv;
+        t[NL] = t[NL + 1] + (uint32_t)(uv >> 32);
+    }
+    Fq r;
+#pragma unroll
+    for (int i = 0; i < NL; i++) r.v[i] = t[i];
+    return fq_reduce_once(r, t[NL], F);
+}
+
+// ---------------------------------------------------------------------------
+// coordinate rings: Fq (G1) and Fq2 = Fq[u]/(u^2 + 1) (BN254 G2)
+// ---------------------------------------------------------------------------
+
+struct RingFq {
+    typedef Fq E;
+    static constexpr int LIMBS16 = 2 * NL;  // 16-bit limbs per coordinate
+    static ZK_HD E add(const E& a, const E& b, const FieldParams& F) { return fq_add(a, b, F); }
+    static ZK_HD E sub(const E& a, const E& b, const FieldParams& F) { return fq_sub(a, b, F); }
+    static ZK_HD E dbl(const E& a, const FieldParams& F) { return fq_dbl(a, F); }
+    static ZK_HD E mul(const E& a, const E& b, const FieldParams& F) { return fq_mul(a, b, F); }
+    static ZK_HD E sqr(const E& a, const FieldParams& F) { return fq_mul(a, a, F); }
+    static ZK_HD bool is_zero(const E& a) { return fq_is_zero(a); }
+    static ZK_HD E one(const FieldParams& F) { return fq_one(F); }
+    static ZK_HD E zero() { return fq_zero(); }
+};
+
+struct Fq2 {
+    Fq c0, c1;
+};
+
+struct RingFq2 {
+    typedef Fq2 E;
+    static constexpr int LIMBS16 = 4 * NL;
+    static ZK_HD E add(const E& a, const E& b, const FieldParams& F) {
+        return E{fq_add(a.c0, b.c0, F), fq_add(a.c1, b.c1, F)};
+    }
+    static ZK_HD E sub(const E& a, const E& b, const FieldParams& F) {
+        return E{fq_sub(a.c0, b.c0, F), fq_sub(a.c1, b.c1, F)};
+    }
+    static ZK_HD E dbl(const E& a, const FieldParams& F) {
+        return E{fq_dbl(a.c0, F), fq_dbl(a.c1, F)};
+    }
+    // Karatsuba with nr = -1: (t0 - t1, (a0 + a1)(b0 + b1) - t0 - t1)
+    static ZK_HD E mul(const E& a, const E& b, const FieldParams& F) {
+        Fq t0 = fq_mul(a.c0, b.c0, F);
+        Fq t1 = fq_mul(a.c1, b.c1, F);
+        Fq t2 = fq_mul(fq_add(a.c0, a.c1, F), fq_add(b.c0, b.c1, F), F);
+        return E{fq_sub(t0, t1, F), fq_sub(fq_sub(t2, t0, F), t1, F)};
+    }
+    static ZK_HD E sqr(const E& a, const FieldParams& F) { return mul(a, a, F); }
+    static ZK_HD bool is_zero(const E& a) { return fq_is_zero(a.c0) && fq_is_zero(a.c1); }
+    static ZK_HD E one(const FieldParams& F) { return E{fq_one(F), fq_zero()}; }
+    static ZK_HD E zero() { return E{fq_zero(), fq_zero()}; }
+};
+
+// ---------------------------------------------------------------------------
+// a = 0 Jacobian point formulas (zksaas_tpu/curves/fused.py::_double_core,
+// ::_add_core); the special cases are branches here instead of selects
+// ---------------------------------------------------------------------------
+
+template <class R>
+ZK_HD void pt_double(typename R::E& X, typename R::E& Y, typename R::E& Z,
+                     const FieldParams& F) {
+    typedef typename R::E E;
+    E A = R::sqr(X, F);
+    E B = R::sqr(Y, F);
+    E C = R::sqr(B, F);
+    E D = R::dbl(R::sub(R::sub(R::sqr(R::add(X, B, F), F), A, F), C, F), F);
+    E E3 = R::add(R::dbl(A, F), A, F);
+    E F2 = R::sqr(E3, F);
+    E X3 = R::sub(F2, R::dbl(D, F), F);
+    E C8 = R::dbl(R::dbl(R::dbl(C, F), F), F);
+    E Y3 = R::sub(R::mul(E3, R::sub(D, X3, F), F), C8, F);
+    E Z3 = R::dbl(R::mul(Y, Z, F), F);
+    X = X3;
+    Y = Y3;
+    Z = Z3;
+}
+
+// (X1, Y1, Z1) += (X2, Y2, Z2), complete: Q at infinity keeps P, P at
+// infinity gives Q, P == Q doubles, P == -Q gives (one, one, zero).
+template <class R>
+ZK_HD void pt_add(typename R::E& X1, typename R::E& Y1, typename R::E& Z1,
+                  const typename R::E& X2, const typename R::E& Y2,
+                  const typename R::E& Z2, const FieldParams& F) {
+    typedef typename R::E E;
+    if (R::is_zero(Z2)) return;
+    if (R::is_zero(Z1)) {
+        X1 = X2;
+        Y1 = Y2;
+        Z1 = Z2;
+        return;
+    }
+    E Z1Z1 = R::sqr(Z1, F);
+    E Z2Z2 = R::sqr(Z2, F);
+    E U1 = R::mul(X1, Z2Z2, F);
+    E U2 = R::mul(X2, Z1Z1, F);
+    E S1 = R::mul(R::mul(Y1, Z2, F), Z2Z2, F);
+    E S2 = R::mul(R::mul(Y2, Z1, F), Z1Z1, F);
+    E H = R::sub(U2, U1, F);
+    E rr = R::dbl(R::sub(S2, S1, F), F);
+    if (R::is_zero(H)) {
+        if (R::is_zero(rr)) {
+            pt_double<R>(X1, Y1, Z1, F);
+        } else {
+            X1 = R::one(F);
+            Y1 = R::one(F);
+            Z1 = R::zero();
+        }
+        return;
+    }
+    E I = R::sqr(R::dbl(H, F), F);
+    E J = R::mul(H, I, F);
+    E V = R::mul(U1, I, F);
+    E X3 = R::sub(R::sub(R::sqr(rr, F), J, F), R::dbl(V, F), F);
+    E Y3 = R::sub(R::mul(rr, R::sub(V, X3, F), F), R::dbl(R::mul(S1, J, F), F), F);
+    E Z3 = R::mul(R::dbl(R::mul(Z1, Z2, F), F), H, F);
+    X1 = X3;
+    Y1 = Y3;
+    Z1 = Z3;
+}
+
+// ---------------------------------------------------------------------------
+// boundary layout: 16-bit limbs held in int32, little-endian
+// ---------------------------------------------------------------------------
+
+ZK_HD void load16(const int32_t* src, Fq& a) {
+#pragma unroll
+    for (int i = 0; i < NL; i++)
+        a.v[i] = ((uint32_t)src[2 * i] & 0xFFFFu) | ((uint32_t)src[2 * i + 1] << 16);
+}
+
+ZK_HD void store16(int32_t* dst, const Fq& a) {
+#pragma unroll
+    for (int i = 0; i < NL; i++) {
+        dst[2 * i] = (int32_t)(a.v[i] & 0xFFFFu);
+        dst[2 * i + 1] = (int32_t)(a.v[i] >> 16);
+    }
+}
+
+ZK_HD void load16(const int32_t* src, Fq2& a) {
+    load16(src, a.c0);
+    load16(src + 2 * NL, a.c1);
+}
+
+ZK_HD void store16(int32_t* dst, const Fq2& a) {
+    store16(dst, a.c0);
+    store16(dst + 2 * NL, a.c1);
+}
+
+ZK_HD FieldParams params_from(const uint32_t* host) {
+    FieldParams F;
+    for (int i = 0; i < NL; i++) {
+        F.p[i] = host[i];
+        F.one[i] = host[NL + i];
+    }
+    F.n0 = host[2 * NL];
+    return F;
+}
+
+}  // namespace zk

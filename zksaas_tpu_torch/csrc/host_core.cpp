@@ -1,0 +1,90 @@
+// Host build of the kernels' arithmetic (field.cuh) for the CPU tests:
+// the same field and point code the CUDA kernels run, looped over the
+// batch on the CPU and exposed through the same C signatures as
+// kernels.cu (prefix zkc_, no stream).  Built with plain g++ by
+// zksaas_tpu_torch/kernels.py::host_core(); the tests hold it against the
+// plain PyTorch versions, which are in turn held against the JAX package.
+
+#include <stdint.h>
+
+#include "field.cuh"
+
+using namespace zk;
+
+template <class R>
+static void add_loop(const int32_t* x1, const int32_t* y1, const int32_t* z1,
+                     const int32_t* x2, const int32_t* y2, const int32_t* z2,
+                     const uint8_t* cond, int32_t* ox, int32_t* oy, int32_t* oz, long n,
+                     const uint32_t* params) {
+    FieldParams F = params_from(params);
+    for (long i = 0; i < n; i++) {
+        const long off = i * R::LIMBS16;
+        typename R::E X, Y, Z, X2, Y2, Z2;
+        load16(x1 + off, X);
+        load16(y1 + off, Y);
+        load16(z1 + off, Z);
+        if (cond == nullptr || cond[i]) {
+            load16(x2 + off, X2);
+            load16(y2 + off, Y2);
+            load16(z2 + off, Z2);
+            pt_add<R>(X, Y, Z, X2, Y2, Z2, F);
+        }
+        store16(ox + off, X);
+        store16(oy + off, Y);
+        store16(oz + off, Z);
+    }
+}
+
+template <class R>
+static void double_loop(const int32_t* x, const int32_t* y, const int32_t* z, int32_t* ox,
+                        int32_t* oy, int32_t* oz, long n, int k, const uint32_t* params) {
+    FieldParams F = params_from(params);
+    for (long i = 0; i < n; i++) {
+        const long off = i * R::LIMBS16;
+        typename R::E X, Y, Z;
+        load16(x + off, X);
+        load16(y + off, Y);
+        load16(z + off, Z);
+        for (int j = 0; j < k; j++) pt_double<R>(X, Y, Z, F);
+        store16(ox + off, X);
+        store16(oy + off, Y);
+        store16(oz + off, Z);
+    }
+}
+
+extern "C" {
+
+int zkc_montmul(const int32_t* a, const int32_t* b, int32_t* out, long n,
+                const uint32_t* params) {
+    FieldParams F = params_from(params);
+    for (long i = 0; i < n; i++) {
+        Fq x, y;
+        load16(a + i * 2 * NL, x);
+        load16(b + i * 2 * NL, y);
+        store16(out + i * 2 * NL, fq_mul(x, y, F));
+    }
+    return 0;
+}
+
+int zkc_point_add_if(int ncoord, const int32_t* x1, const int32_t* y1, const int32_t* z1,
+                     const int32_t* x2, const int32_t* y2, const int32_t* z2,
+                     const uint8_t* cond, int32_t* ox, int32_t* oy, int32_t* oz, long n,
+                     const uint32_t* params) {
+    if (ncoord == 1)
+        add_loop<RingFq>(x1, y1, z1, x2, y2, z2, cond, ox, oy, oz, n, params);
+    else
+        add_loop<RingFq2>(x1, y1, z1, x2, y2, z2, cond, ox, oy, oz, n, params);
+    return 0;
+}
+
+int zkc_point_double(int ncoord, const int32_t* x, const int32_t* y, const int32_t* z,
+                     int32_t* ox, int32_t* oy, int32_t* oz, long n, int k,
+                     const uint32_t* params) {
+    if (ncoord == 1)
+        double_loop<RingFq>(x, y, z, ox, oy, oz, n, k, params);
+    else
+        double_loop<RingFq2>(x, y, z, ox, oy, oz, n, k, params);
+    return 0;
+}
+
+}  // extern "C"

@@ -1,0 +1,53 @@
+"""Degree reduction (dist-primitives/src/utils/deg_red.rs), king path.
+
+Port of zksaas_tpu/dist/deg_red.py.  After share-local multiplication the
+sharing degree doubles; the king unpacks (degree-2(t+l-1)-aware) and
+re-packs fresh degree-(t+l-1) shares: one gather and one scatter
+(deg_red.rs:80-126).  Parties blind with in_mask before sending and
+un-blind with out_mask (= -mask, re-packed) afterwards.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..pss.pss import PackedSharingParams
+from ..utils.rng import split
+
+
+def deg_red(pp: PackedSharingParams, x_share, mask, net, rng, channel=0):
+    """x_share: (..., num, K) packed-share values (num sharings per party);
+    returns re-packed degree-(t+l-1) shares."""
+    F = pp.F
+    xm = F.add(x_share, mask.in_mask)
+
+    def king_fn(shares, parties):
+        sh = shares.transpose(0, 1)  # (num, n_present, K)
+        secrets = pp.unpack_missing_shares(sh, parties)  # (num, l, K)
+        out = pp.pack(secrets, pp.rand_pads(rng, (sh.shape[0],), sh.device))
+        return out.transpose(0, 1)  # (n, num, K)
+
+    out_share = net.round(xm, king_fn, channel)
+    return F.add(out_share, mask.out_mask)
+
+
+@dataclass
+class DegRedMask:
+    """in_mask/out_mask: (n, num, K), leading party axis (deg_red.rs:14-77)."""
+
+    in_mask: torch.Tensor
+    out_mask: torch.Tensor
+
+    @staticmethod
+    def sample(pp: PackedSharingParams, num: int, rng, device="cuda"):
+        F = pp.F
+        k_vals, k_in, k_out = split(rng, 3)
+        vals = F.rand(k_vals, (num, pp.l), device)
+        in_shares = pp.pack(vals, pp.rand_pads(k_in, (num,), device))
+        out_shares = pp.pack(F.neg(vals), pp.rand_pads(k_out, (num,), device))
+        return DegRedMask(
+            in_mask=in_shares.transpose(0, 1).contiguous(),
+            out_mask=out_shares.transpose(0, 1).contiguous(),
+        )
