@@ -6,12 +6,17 @@
 2. builds the hand-written kernels from zksaas_tpu_torch/csrc with nvcc;
 3. runs each kernel on the card at the main path's shapes and holds it
    bit for bit against its plain PyTorch version on the same inputs
-   (tolerance: exact equality), timing both;
-4. drives the flagship, zksaas_tpu_torch.sha256_e2e (the 51,454-constraint
+   (tolerance: exact equality), timing both, and torch.sort beside the
+   key sort as its library yardstick;
+4. runs the bucket-Pippenger MSM (curves/pippenger.py::msm_best) on the
+   card for one party's 2^15 G1 points and holds its affine result against
+   scalar_mul_w4 + sum on the same card;
+5. drives the flagship, zksaas_tpu_torch.sha256_e2e (the 51,454-constraint
    SHA-256 circuit, m = 2^16, 8 parties, l = 2, BN254), with every launch
    count set to 0 just before and read just after, and asserts that the
-   pairing check passes and that every kernel launched;
-5. prints the kernels line and, last, the device line.
+   pairing check passes and that every kernel launched, in the whole run
+   and in the timed prove;
+6. prints the kernels line and, last, the device line.
 
 Exits non-zero, before printing any result, when no CUDA device is present
 or any phase fails.  Imports nothing of JAX.
@@ -29,14 +34,18 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and 32-bit
-# integer multiply-adds at the non-tensor float32 rate.
+# H100 SXM memory rate (NVIDIA data sheet).  The operations peak is set in
+# main() from the card: SMs x 64 32-bit integer multiplies (or compares)
+# per clock per SM (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0) x the card's max SM clock.
 PEAK_BYTES = 3.35e12
-PEAK_OPS = 67e12
+PEAK_OPS = None
 # 32-bit multiply instructions per BN254 Montgomery product: 8x8 a*b and
 # 8x8 m*p wide products (lo + hi each) and 8 m's.
 OPS_PER_MUL = 2 * (64 + 64) + 8
 MULS_ADD, MULS_DBL_BRANCH, MULS_DOUBLE = 16, 15, 7
+# Montgomery products per lane of the new point kernels' branches
+MULS_AADD, MULS_MADD, MULS_MADD_NEG = 6, 11, 4
 
 
 def log(msg):
@@ -85,36 +94,53 @@ def check_montmul(spec, n, gen):
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
 
-def test_points(curve, n, gen, dev="cuda"):
-    """n Jacobian points P, Q with random Z, and every special case of the
-    complete add in the mix: P == Q (other Z), P == -Q, P or Q or both at
-    infinity; and a random 0/1 cond."""
+def _v(m, c):
+    return m.view((-1,) + (1,) * (c.dim() - 1))
+
+
+def affine_pairs(curve, n, gen, dev="cuda"):
+    """n pairs of Z = 1 points P, Q from a pool of 32, with Q == P in every
+    16th lane and Q == -P in the next."""
     import random
 
-    F = curve.R.F
     rng = random.Random(7)
     pool = curve.encode([curve.ref.rand(rng) for _ in range(32)], device=dev)
     idx = torch.randint(0, 32, (2, n), generator=gen).to(dev)
     P = [c[idx[0]] for c in pool]
     Q = [c[idx[1]] for c in pool]
     kind = torch.arange(n, device=dev) % 16
-    v = lambda m, c: m.view((-1,) + (1,) * (c.dim() - 1))
     same, neg = kind == 1, kind == 2
-    Q = [torch.where(v(same, q), p, q) for p, q in zip(P, Q)]
-    Q = [torch.where(v(neg, q), m, q) for m, q in zip(curve.neg(tuple(P)), Q)]
+    Q = [torch.where(_v(same, q), p, q) for p, q in zip(P, Q)]
+    Q = [torch.where(_v(neg, q), m, q) for m, q in zip(curve.neg(tuple(P)), Q)]
+    return P, Q, kind
 
-    def rescale(pt):  # (X l^2, Y l^3, Z l): the same point, another Z
-        lam = F.rand(gen, (n,) + curve.R.coord_shape[:-1], dev)
-        lam2 = curve.R.square(lam)
-        return (curve.R.mul(pt[0], lam2), curve.R.mul(pt[1], curve.R.mul(lam2, lam)),
-                curve.R.mul(pt[2], lam))
 
-    P, Q = rescale(P), rescale(Q)
+def same_coord(a, b):
+    """Lanes whose canonical coordinates agree."""
+    return (a == b).flatten(1).all(1)
+
+
+def rescale(curve, pt, gen):
+    """(X l^2, Y l^3, Z l) for random l: the same points, another Z."""
+    n = pt[0].shape[0]
+    lam = curve.R.F.rand(gen, (n,) + curve.R.coord_shape[:-1], pt[0].device)
+    lam2 = curve.R.square(lam)
+    return (curve.R.mul(pt[0], lam2), curve.R.mul(pt[1], curve.R.mul(lam2, lam)),
+            curve.R.mul(pt[2], lam))
+
+
+def test_points(curve, n, gen, dev="cuda"):
+    """n Jacobian points P, Q with random Z, and every special case of the
+    complete add in the mix: P == Q (other Z), P == -Q, P or Q or both at
+    infinity; and a random 0/1 cond."""
+    P, Q, kind = affine_pairs(curve, n, gen, dev)
+    same, neg = kind == 1, kind == 2
+    P, Q = rescale(curve, P, gen), rescale(curve, Q, gen)
     inf = curve.infinity((n,), dev)
     pin = (kind == 3) | (kind == 5)
     qin = (kind == 4) | (kind == 5)
-    P = tuple(torch.where(v(pin, c), o, c).contiguous() for c, o in zip(P, inf))
-    Q = tuple(torch.where(v(qin, c), o, c).contiguous() for c, o in zip(Q, inf))
+    P = tuple(torch.where(_v(pin, c), o, c).contiguous() for c, o in zip(P, inf))
+    Q = tuple(torch.where(_v(qin, c), o, c).contiguous() for c, o in zip(Q, inf))
     cond = (torch.rand(n, generator=gen) < 0.5).to(dev)
     return P, Q, cond, dict(pin=pin, qin=qin, same=same, neg=neg)
 
@@ -173,7 +199,175 @@ def check_points(curve, n, gen):
     return rows
 
 
+def check_ring(curve, n, gen):
+    """ring_mul at n and ring_inv at the inversion tree's root width 1,024,
+    zeros among the inputs."""
+    from zksaas_tpu_torch import kernels
+    from zksaas_tpu_torch.curves import point_ops as po
+
+    spec, nc = curve.spec, curve._ncoord
+    shape = (n,) + curve.R.coord_shape[:-1]
+    a, b = curve.R.F.rand(gen, shape, "cuda"), curve.R.F.rand(gen, shape, "cuda")
+    a[:4] = 0
+    saved = [k.launches for k in kernels.KERNELS]
+    rows = []
+    ring_muls = 1 if nc == 1 else 3
+    out, ref = po.ring_mul(spec, nc, a, b), po.ring_mul_plain(spec, nc, a, b)
+    torch.cuda.synchronize()
+    bms, by = bound(3 * n * 64 * nc, n * ring_muls * OPS_PER_MUL)
+    rows.append(("ring_mul", dict(
+        case=f"{curve.name} n=2^{n.bit_length() - 1}", max_abs_err=max_err([out], [ref]),
+        ms=cuda_ms(lambda: po.ring_mul(spec, nc, a, b), 20),
+        plain_ms=cuda_ms(lambda: po.ring_mul_plain(spec, nc, a, b), 1),
+        bound_ms=bms, bound_by=by)))
+    x = a[:1024].contiguous()
+    e = spec.p - 2
+    fermat = e.bit_length() - 1 + bin(e).count("1") - 1  # squares + products
+    out, ref = po.ring_inv(spec, nc, x), po.ring_inv_plain(spec, nc, x)
+    torch.cuda.synchronize()
+    bms, by = bound(2 * 1024 * 64 * nc, 1024 * (fermat + (0 if nc == 1 else 4)) * OPS_PER_MUL)
+    rows.append(("ring_inv", dict(
+        case=f"{curve.name} n=1024", max_abs_err=max_err([out], [ref]),
+        ms=cuda_ms(lambda: po.ring_inv(spec, nc, x), 5),
+        plain_ms=cuda_ms(lambda: po.ring_inv_plain(spec, nc, x), 1),
+        bound_ms=bms, bound_by=by)))
+    for kern, c in zip(kernels.KERNELS, saved):
+        kern.launches = c
+    return rows
+
+
+def check_affine_adds(curve, n_aadd, n_madd, gen):
+    """point_aadd over n_aadd affine pairs with P == Q, P == -Q and infinity
+    flags mixed in; point_madd_if over n_madd Jacobian accumulators (random
+    Z, some at infinity) and affine nodes equal to them, to their
+    negatives, or other, under a random cond."""
+    from zksaas_tpu_torch import kernels
+    from zksaas_tpu_torch.curves import point_ops as po
+
+    spec, nc = curve.spec, curve._ncoord
+    coord = 64 * nc
+    ring_muls = 1 if nc == 1 else 3
+    saved = [k.launches for k in kernels.KERNELS]
+    rows = []
+
+    P, Q, kind = affine_pairs(curve, n_aadd, gen)
+    P, Q = tuple(c.contiguous() for c in P[:2]), tuple(c.contiguous() for c in Q[:2])
+    inf1, inf2 = (kind == 3) | (kind == 5), (kind == 4) | (kind == 5)
+    live = ~(inf1 | inf2)
+    samex, samey = (same_coord(P[i], Q[i]) for i in range(2))
+    muls = (int((live & ~samex).sum()) * MULS_AADD
+            + int((live & samex & samey).sum()) * MULS_DOUBLE)
+
+    def plain():  # in slices of 2^20 lanes: the int64 temporaries of 2^22 G2 lanes pass 80 GB
+        parts = [po.point_aadd_plain(spec, nc, tuple(c[i : i + (1 << 20)] for c in P),
+                                     tuple(c[i : i + (1 << 20)] for c in Q),
+                                     inf1[i : i + (1 << 20)], inf2[i : i + (1 << 20)])
+                 for i in range(0, n_aadd, 1 << 20)]
+        return tuple(torch.cat(cs) for cs in zip(*parts))
+
+    out = po.point_aadd(spec, nc, P, Q, inf1, inf2)
+    err = max_err(out, plain())
+    del out
+    bms, by = bound(7 * n_aadd * coord + 2 * n_aadd, muls * ring_muls * OPS_PER_MUL)
+    rows.append(("point_aadd", dict(
+        case=f"{curve.name} n=2^{n_aadd.bit_length() - 1}", max_abs_err=err,
+        ms=cuda_ms(lambda: po.point_aadd(spec, nc, P, Q, inf1, inf2), 5),
+        plain_ms=cuda_ms(plain, 1), bound_ms=bms, bound_by=by)))
+    del P, Q, inf1, inf2
+
+    P, Q, kind = affine_pairs(curve, n_madd, gen)
+    pin = kind == 3
+    inf = curve.infinity((n_madd,), "cuda")
+    A = tuple(torch.where(_v(pin, c), o, c).contiguous()
+              for c, o in zip(rescale(curve, P, gen), inf))
+    N = tuple(c.contiguous() for c in Q[:2])
+    cond = (torch.rand(n_madd, generator=gen) < 0.5).to("cuda")
+    on = cond & ~pin
+    samex, samey = (same_coord(P[i], Q[i]) for i in range(2))
+    muls = (int((on & ~(samex & ~samey)).sum()) * MULS_MADD
+            + int((on & samex & ~samey).sum()) * MULS_MADD_NEG)
+    out = po.point_madd_if(spec, nc, A, N, cond)
+    ref = po.point_madd_if_plain(spec, nc, A, N, cond)
+    torch.cuda.synchronize()
+    bms, by = bound(6 * n_madd * coord + n_madd + int(cond.sum()) * 2 * coord,
+                    muls * ring_muls * OPS_PER_MUL)
+    rows.append(("point_madd_if", dict(
+        case=f"{curve.name} n={n_madd}", max_abs_err=max_err(out, ref),
+        ms=cuda_ms(lambda: po.point_madd_if(spec, nc, A, N, cond), 10),
+        plain_ms=cuda_ms(lambda: po.point_madd_if_plain(spec, nc, A, N, cond), 1),
+        bound_ms=bms, bound_by=by)))
+    for kern, c in zip(kernels.KERNELS, saved):
+        kern.launches = c
+    return rows
+
+
+def check_sort(rows_, n, gen):
+    """sort_u32 over rows_ rows of n random keys, half with bit 31 set, and
+    torch.sort of the same keys (widened to int64, as the plain version
+    does) as the library yardstick."""
+    from zksaas_tpu_torch import kernels
+    from zksaas_tpu_torch.fields.sortperm import sort_u32, sort_u32_plain
+
+    keys = torch.randint(-(1 << 31), 1 << 31, (rows_, n), generator=gen,
+                         dtype=torch.int64).int().to("cuda")
+    before = kernels.SORT_U32.launches
+    out, ref = sort_u32(keys), sort_u32_plain(keys)
+    torch.cuda.synchronize()
+    wide = keys.long() & 0xFFFFFFFF
+    stages = (n.bit_length() - 1) * n.bit_length() // 2
+    bms, by = bound(2 * 4 * keys.numel(), keys.numel() // 2 * stages)
+    row = dict(case=f"{rows_} rows x 2^{n.bit_length() - 1} keys", max_abs_err=max_err([out], [ref]),
+               ms=cuda_ms(lambda: sort_u32(keys), 10),
+               plain_ms=cuda_ms(lambda: sort_u32_plain(keys), 3),
+               library_ms=cuda_ms(lambda: torch.sort(wide, dim=-1), 10),
+               bound_ms=bms, bound_by=by)
+    kernels.SORT_U32.launches = before
+    return [("sort_u32", row)]
+
+
+def check_pippenger(curve, m, gen):
+    """msm_best on the card for one party's m points (random Z, some at
+    infinity, some zero scalars) against scalar_mul_w4 + sum on the card,
+    as decoded affine points, with both wall times."""
+    from zksaas_tpu_torch import kernels
+    from zksaas_tpu_torch.curves.pippenger import msm_best
+
+    saved = [k.launches for k in kernels.KERNELS]
+    P, _, kind = affine_pairs(curve, m, gen)
+    inf = curve.infinity((m,), "cuda")
+    P = tuple(torch.where(_v(kind == 3, c), o, c).contiguous()
+              for c, o in zip(rescale(curve, P, gen), inf))
+    s = curve.fr.rand(gen, (m,), "cuda")
+    s[kind == 4] = 0
+    times = {}
+    for name, fn in (("msm_best", lambda: msm_best(curve, tuple(c[None] for c in P), s[None])),
+                     ("w4_sum", lambda: curve.sum(curve.scalar_mul_w4(P, s), axis=0))):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0, curve.decode(tuple(c.reshape((1,) + c.shape[-curve._ncoord:]) for c in out)))
+    for kern, c in zip(kernels.KERNELS, saved):
+        kern.launches = c
+    equal = times["msm_best"][1] == times["w4_sum"][1]
+    return dict(case=f"{curve.name} m=2^{m.bit_length() - 1}, one party", equal=equal,
+                msm_best_s=times["msm_best"][0], w4_sum_s=times["w4_sum"][0])
+
+
+def card_peak_ops():
+    """32-bit integer multiplies per second: SMs x 64 a clock x max SM clock."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 64 * mhz * 1e6, sms, mhz
+
+
 def main():
+    global PEAK_OPS
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
     smi = subprocess.run(
@@ -182,6 +376,8 @@ def main():
     )
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
     log(f"card: {card}")
+    PEAK_OPS, sms, mhz = card_peak_ops()
+    log(f"peak: {PEAK_BYTES:.3e} B/s; {PEAK_OPS:.4e} int32 multiplies/s ({sms} SMs x 64 x {mhz:.0f} MHz)")
 
     from zksaas_tpu_torch import kernels
     from zksaas_tpu_torch.curves.curve import curve_g1, curve_g2
@@ -201,10 +397,28 @@ def main():
         for name, row in check_points(curve, 1 << lg, gen):
             cases[name].append(row)
             log(f"check {name} {json.dumps(row)}")
+    # flagship shapes: the inversion tree and affine products over 8 x 2^15
+    # points, tree level 1 over 8 x 2^20 / 2 slots, the level-0 queries over
+    # 8 x 32 windows x 255 buckets, the key sort over 8 rows of 2^20 keys
+    checks = [lambda c: check_ring(c, 1 << 18, gen),
+              lambda c: check_affine_adds(c, 1 << 22, 8 * 32 * 255, gen)]
+    for curve in (curve_g1(), curve_g2()):
+        for chk in checks:
+            for name, row in chk(curve):
+                cases[name].append(row)
+                log(f"check {name} {json.dumps(row)}")
+            torch.cuda.empty_cache()
+    for name, row in check_sort(8, 1 << 20, gen):
+        cases[name].append(row)
+        log(f"check {name} {json.dumps(row)}")
     for name, rows in cases.items():
         bad = [r for r in rows if r["max_abs_err"] != 0]
         if bad:
             raise SystemExit(f"{name} disagrees with its plain version: {bad}")
+    pip = check_pippenger(curve_g1(), 1 << 15, gen)
+    log(f"pippenger {json.dumps(pip)}")
+    if not pip["equal"]:
+        raise SystemExit(f"msm_best disagrees with scalar_mul_w4 + sum: {pip}")
 
     from zksaas_tpu_torch import sha256_e2e
 
@@ -231,7 +445,8 @@ def main():
             "launches": path_launches[k.name], "prove_launches": prove_launches[k.name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": None, "case": head["case"],
+            "bound_by": head["bound_by"], "library_ms": head.get("library_ms"),
+            "case": head["case"],
             "cases": rows,
         })
     print(f"card: {card}")

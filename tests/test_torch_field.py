@@ -63,6 +63,16 @@ def test_elementwise_op_matches_jax(name, op):
     _eq(fn(jf, jnp.asarray(a), jnp.asarray(b)), fn(tf, convert.to_torch(a), convert.to_torch(b)))
 
 
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+def test_large_batch_paths_match_jax(op):
+    """4,099 elements: past the sizes where the plain montmul takes its
+    limb-major REDC and normalize its limb-by-limb carries."""
+    jf, tf, _, _, a, b = _setup("bn254_fq", n=4096, seed=11)
+    assert a.shape[0] >= tmontmul._REDC_MIN and 2 * a.size >= tlimbs._SEQ_MIN
+    fn = OPS[op]
+    _eq(fn(jf, jnp.asarray(a), jnp.asarray(b)), fn(tf, convert.to_torch(a), convert.to_torch(b)))
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_inv_matches_jax(name):
     jf, tf, _, _, a, _ = _setup(name, n=5, seed=3)
@@ -107,13 +117,15 @@ def test_rand_is_canonical_and_seeded(name):
     assert torch.equal(tf.encode(list(vals), device="cpu").reshape(r1.shape), r1)
 
 
+@pytest.mark.parametrize("count", [16, 300])
 @pytest.mark.parametrize("name", NAMES)
-def test_montmul_accepts_raw_operand_below_r(name):
-    """Field.rand multiplies raw limbs (< R, not reduced) by R^2."""
+def test_montmul_accepts_raw_operand_below_r(name, count):
+    """Field.rand multiplies raw limbs (< R, not reduced) by R^2 (both
+    plain paths: 300 elements take the limb-major REDC)."""
     tf = TField(TFIELDS[name])
     spec = tf.spec
     rng = np.random.default_rng(7)
-    raws = [int.from_bytes(rng.bytes(32), "little") for _ in range(16)] + [spec.R - 1]
+    raws = [int.from_bytes(rng.bytes(32), "little") for _ in range(count)] + [spec.R - 1]
     limbs = lambda x: [(x >> (16 * i)) & 0xFFFF for i in range(16)]
     a = torch.tensor([limbs(x) for x in raws], dtype=torch.int32)
     b = tf.const(7, (len(raws),), device="cpu").contiguous()
@@ -122,13 +134,14 @@ def test_montmul_accepts_raw_operand_below_r(name):
     assert list(got) == [x * rinv * 7 % spec.p for x in raws]
 
 
-@pytest.mark.parametrize("n", [1, 5, 18, 34])
-def test_normalize_resolves_long_carry_chains(n):
+@pytest.mark.parametrize("rows,n", [(64, 1), (64, 5), (64, 18), (64, 34), (4096, 18)])
+def test_normalize_resolves_long_carry_chains(rows, n):
     """Redundant columns with long 0xFFFF runs (rare in random field values)
-    normalize to the limbs of the same integer, against Python ints."""
+    normalize to the limbs of the same integer, against Python ints (4,096
+    rows take the limb-by-limb carries)."""
     rng = np.random.default_rng(n)
-    x = 0xFFFF + rng.integers(-1, 3, size=(64, n))
-    x = np.where(rng.random((64, n)) < 0.2, rng.integers(0, 1 << 18, size=(64, n)), x)
+    x = 0xFFFF + rng.integers(-1, 3, size=(rows, n))
+    x = np.where(rng.random((rows, n)) < 0.2, rng.integers(0, 1 << 18, size=(rows, n)), x)
     out, top = tlimbs.normalize(torch.from_numpy(x))
     for row, o, c in zip(x.tolist(), out.tolist(), top.tolist()):
         want = sum(v << (16 * j) for j, v in enumerate(row))

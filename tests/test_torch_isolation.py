@@ -44,6 +44,9 @@ print("ok", len(names))
 _SETUP = """
 from zksaas_tpu_torch import sha256_e2e
 from zksaas_tpu_torch.circom.r1cs import ConstraintBuilder
+from zksaas_tpu_torch.curves.curve import curve_g1
+from zksaas_tpu_torch.curves.pippenger import msm_best
+from zksaas_tpu_torch.fields.sortperm import sort_u32
 from zksaas_tpu_torch.fields.field import field
 from zksaas_tpu_torch.fields.spec import BN254_FR
 from zksaas_tpu_torch.groth16.prove import pack_witness
@@ -62,6 +65,8 @@ ENTRY_POINTS = {
     "field_encode": "field(BN254_FR).encode([1, 2]{})",
     "qap_pack": "qap_pack(pp, r1cs, z, generator(1){})",
     "pack_witness": "pack_witness(pp, [1, 2, 3], generator(1){})",
+    "msm_best": "msm_best(curve_g1(), curve_g1().infinity((1,){0}), field(BN254_FR).zeros((1,){0}))",
+    "sort_u32": "sort_u32(field(BN254_FR).zeros((256,){0})[:, 0])",
 }
 
 

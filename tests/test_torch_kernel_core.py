@@ -3,9 +3,10 @@
 csrc/field.cuh holds the field and point code every kernel runs, as
 __host__ __device__ functions.  Here plain g++ builds it (csrc/host_core.cpp,
 no torch headers) into a ctypes library under the port's git-ignored build
-directory, once per test run, and its montmul, add, add_if and double(k)
-are compared with the plain PyTorch versions on a few hundred elements,
-special cases included.  Tolerance: exact equality.  The plain versions are
+directory, once per test run, and its montmul, add, add_if, double(k),
+ring product and inverse, affine+affine add, mixed add-if and bitonic sort
+network are compared with the plain PyTorch versions on a few hundred
+elements, special cases included.  Tolerance: exact equality.  The plain versions are
 held against the JAX package in test_torch_field.py / test_torch_curve.py.
 """
 
@@ -21,6 +22,7 @@ from zksaas_tpu_torch.curves import point_ops
 from zksaas_tpu_torch.curves.curve import curve_g1, curve_g2
 from zksaas_tpu_torch.fields.field import field
 from zksaas_tpu_torch.fields.montmul import montmul_plain
+from zksaas_tpu_torch.fields.sortperm import sort_u32_plain
 from zksaas_tpu_torch.fields.spec import BN254_FQ, BN254_FR
 
 torch.set_num_threads(1)
@@ -109,6 +111,69 @@ def test_core_double_matches_plain(core, ncoord, k):
     )
     for o, r in zip(out, point_ops.point_double_plain(C.spec, ncoord, P, k)):
         assert torch.equal(o, r)
+
+
+@pytest.mark.parametrize("op", ["mul", "inv"])
+@pytest.mark.parametrize("ncoord", [1, 2], ids=["g1", "g2"])
+def test_core_ring_matches_plain(core, ncoord, op):
+    C = curve_g1() if ncoord == 1 else curve_g2()
+    n = 64 if op == "mul" else 6
+    gen = torch.Generator().manual_seed(50 + ncoord)
+    a, b = (C.R.F.rand(gen, (n,) + C.R.coord_shape[:-1], device="cpu") for _ in range(2))
+    a[0] = 0
+    out = torch.empty_like(a)
+    prm = kernels.field_params(C.spec).ctypes.data
+    if op == "mul":
+        core.zkc_ring_mul(ncoord, _ptr(a), _ptr(b), _ptr(out), n, prm)
+        ref = point_ops.ring_mul_plain(C.spec, ncoord, a, b)
+    else:
+        core.zkc_ring_inv(ncoord, _ptr(a), _ptr(out), n, prm)
+        ref = point_ops.ring_inv_plain(C.spec, ncoord, a)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("ncoord", [1, 2], ids=["g1", "g2"])
+def test_core_aadd_matches_plain(core, ncoord):
+    """Affine P, Q (the Z == 1 points of _points' mix): P == Q, P == -Q,
+    and infinity flags on either or both sides."""
+    C = curve_g1() if ncoord == 1 else curve_g2()
+    n = 100
+    P, Q = _points(C, n, seed=60 + ncoord)
+    P, Q = C.to_affine(P)[:2], C.to_affine(Q)[:2]
+    rng = np.random.default_rng(4)
+    inf1 = torch.from_numpy(rng.random(n) < 0.2)
+    inf2 = torch.from_numpy(rng.random(n) < 0.2)
+    out = tuple(torch.empty_like(P[0]) for _ in range(3))
+    core.zkc_point_aadd(ncoord, *map(_ptr, (*P, *Q, inf1, inf2, *out)), n,
+                        kernels.field_params(C.spec).ctypes.data)
+    for o, r in zip(out, point_ops.point_aadd_plain(C.spec, ncoord, P, Q, inf1, inf2)):
+        assert torch.equal(o, r)
+
+
+@pytest.mark.parametrize("ncoord", [1, 2], ids=["g1", "g2"])
+def test_core_madd_if_matches_plain(core, ncoord):
+    C = curve_g1() if ncoord == 1 else curve_g2()
+    n = 100
+    P, Q = _points(C, n, seed=70 + ncoord)
+    fin = ~C.is_inf(Q)
+    Qa = C.to_affine(Q)[:2]  # the node is never at infinity: fold it into cond
+    cond = torch.from_numpy(np.random.default_rng(5).random(n) < 0.7) & fin
+    out = tuple(torch.empty_like(P[0]) for _ in range(3))
+    core.zkc_point_madd_if(ncoord, *map(_ptr, (*P, *Qa, cond, *out)), n,
+                           kernels.field_params(C.spec).ctypes.data)
+    for o, r in zip(out, point_ops.point_madd_if_plain(C.spec, ncoord, P, Qa, cond)):
+        assert torch.equal(o, r)
+
+
+def test_core_sort_matches_plain(core):
+    rng = np.random.default_rng(6)
+    keys = rng.integers(0, 1 << 32, size=(3, 1024), dtype=np.uint64).astype(np.uint32)
+    keys[:, ::3] |= np.uint32(1 << 31)
+    keys[2, 500:520] = keys[2, 7]
+    t = torch.from_numpy(keys.view(np.int32).copy())
+    out = t.clone()
+    core.zkc_sort_u32(_ptr(out), out.numel(), 1024)
+    assert torch.equal(out, sort_u32_plain(t))
 
 
 def test_field_params_are_the_32bit_montgomery_constants():

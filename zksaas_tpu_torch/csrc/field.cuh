@@ -2,8 +2,10 @@
 // the g++ host build used by the CPU tests (host_core.cpp).
 //
 // Replaces the in-kernel limb library of the JAX package
-// (zksaas_tpu/fields/kernel_lib.py::KernelField) and the point cores of
-// zksaas_tpu/curves/fused.py (_double_core, _add_core).
+// (zksaas_tpu/fields/kernel_lib.py::KernelField), the point cores of
+// zksaas_tpu/curves/fused.py (_double_core, _add_core, _aadd_core,
+// _madd_core), its Fermat inverse (_finv_call) and the compare-exchange of
+// the bitonic sort (zksaas_tpu/fields/sortperm.py).
 //
 // An Fq element is 8 little-endian 32-bit limbs in Montgomery form.  The
 // tensors at the kernel boundary hold 16 16-bit limbs per element
@@ -145,6 +147,28 @@ ZK_HD Fq fq_mul(const Fq& a, const Fq& b, const FieldParams& F) {
     return fq_reduce_once(r, t[NL], F);
 }
 
+// Fermat inverse a^(p-2) (zksaas_tpu/curves/fused.py::_finv_call): left to
+// right over the exponent bits below the top one, one square and, for a set
+// bit, one product each.  The exponent is the same for every thread, so the
+// branch never diverges.  0 maps to 0.
+ZK_HD Fq fq_inv(const Fq& a, const FieldParams& F) {
+    uint32_t e[NL];
+    uint32_t br = 2;
+    for (int i = 0; i < NL; i++) {  // e = p - 2
+        uint64_t t = (uint64_t)F.p[i] - br;
+        e[i] = (uint32_t)t;
+        br = (uint32_t)(t >> 63);
+    }
+    int top = 32 * NL - 1;
+    while (!((e[top >> 5] >> (top & 31)) & 1u)) top--;
+    Fq acc = a;
+    for (int i = top - 1; i >= 0; i--) {
+        acc = fq_mul(acc, acc, F);
+        if ((e[i >> 5] >> (i & 31)) & 1u) acc = fq_mul(acc, a, F);
+    }
+    return acc;
+}
+
 // ---------------------------------------------------------------------------
 // coordinate rings: Fq (G1) and Fq2 = Fq[u]/(u^2 + 1) (BN254 G2)
 // ---------------------------------------------------------------------------
@@ -157,6 +181,7 @@ struct RingFq {
     static ZK_HD E dbl(const E& a, const FieldParams& F) { return fq_dbl(a, F); }
     static ZK_HD E mul(const E& a, const E& b, const FieldParams& F) { return fq_mul(a, b, F); }
     static ZK_HD E sqr(const E& a, const FieldParams& F) { return fq_mul(a, a, F); }
+    static ZK_HD E inv(const E& a, const FieldParams& F) { return fq_inv(a, F); }
     static ZK_HD bool is_zero(const E& a) { return fq_is_zero(a); }
     static ZK_HD E one(const FieldParams& F) { return fq_one(F); }
     static ZK_HD E zero() { return fq_zero(); }
@@ -186,6 +211,11 @@ struct RingFq2 {
         return E{fq_sub(t0, t1, F), fq_sub(fq_sub(t2, t0, F), t1, F)};
     }
     static ZK_HD E sqr(const E& a, const FieldParams& F) { return mul(a, a, F); }
+    // through the norm: (c0 + c1 u)^-1 = (c0 - c1 u) / (c0^2 + c1^2)
+    static ZK_HD E inv(const E& a, const FieldParams& F) {
+        Fq ninv = fq_inv(fq_add(fq_mul(a.c0, a.c0, F), fq_mul(a.c1, a.c1, F), F), F);
+        return E{fq_mul(a.c0, ninv, F), fq_sub(fq_zero(), fq_mul(a.c1, ninv, F), F)};
+    }
     static ZK_HD bool is_zero(const E& a) { return fq_is_zero(a.c0) && fq_is_zero(a.c1); }
     static ZK_HD E one(const FieldParams& F) { return E{fq_one(F), fq_zero()}; }
     static ZK_HD E zero() { return E{fq_zero(), fq_zero()}; }
@@ -213,6 +243,20 @@ ZK_HD void pt_double(typename R::E& X, typename R::E& Y, typename R::E& Z,
     X = X3;
     Y = Y3;
     Z = Z3;
+}
+
+// The part the adds share, from H = U2 - U1 and rr = 2 (S2 - S1):
+// I = (2H)^2, J = H I, V = U1 I, X3 = rr^2 - J - 2V, Y3 = rr (V - X3) - 2 S1 J.
+template <class R>
+ZK_HD void pt_chord(const typename R::E& H, const typename R::E& rr, const typename R::E& U1,
+                    const typename R::E& S1, typename R::E& X3, typename R::E& Y3,
+                    const FieldParams& F) {
+    typedef typename R::E E;
+    E I = R::sqr(R::dbl(H, F), F);
+    E J = R::mul(H, I, F);
+    E V = R::mul(U1, I, F);
+    X3 = R::sub(R::sub(R::sqr(rr, F), J, F), R::dbl(V, F), F);
+    Y3 = R::sub(R::mul(rr, R::sub(V, X3, F), F), R::dbl(R::mul(S1, J, F), F), F);
 }
 
 // (X1, Y1, Z1) += (X2, Y2, Z2), complete: Q at infinity keeps P, P at
@@ -247,15 +291,110 @@ ZK_HD void pt_add(typename R::E& X1, typename R::E& Y1, typename R::E& Z1,
         }
         return;
     }
-    E I = R::sqr(R::dbl(H, F), F);
-    E J = R::mul(H, I, F);
-    E V = R::mul(U1, I, F);
-    E X3 = R::sub(R::sub(R::sqr(rr, F), J, F), R::dbl(V, F), F);
-    E Y3 = R::sub(R::mul(rr, R::sub(V, X3, F), F), R::dbl(R::mul(S1, J, F), F), F);
+    E X3, Y3;
+    pt_chord<R>(H, rr, U1, S1, X3, Y3, F);
     E Z3 = R::mul(R::dbl(R::mul(Z1, Z2, F), F), H, F);
     X1 = X3;
     Y1 = Y3;
     Z1 = Z3;
+}
+
+// Affine (X1, Y1) + affine (X2, Y2) -> Jacobian (X3, Y3, Z3), complete,
+// mmadd-2007-bl (zksaas_tpu/curves/fused.py::_aadd_core): Q at infinity
+// keeps P (with Z = 0 if P is at infinity too), P at infinity gives Q,
+// P == Q doubles (X1, Y1, 1), P == -Q gives (one, one, zero).
+template <class R>
+ZK_HD void pt_aadd(const typename R::E& X1, const typename R::E& Y1, bool inf1,
+                   const typename R::E& X2, const typename R::E& Y2, bool inf2,
+                   typename R::E& X3, typename R::E& Y3, typename R::E& Z3,
+                   const FieldParams& F) {
+    typedef typename R::E E;
+    if (inf2) {
+        X3 = X1;
+        Y3 = Y1;
+        Z3 = inf1 ? R::zero() : R::one(F);
+        return;
+    }
+    if (inf1) {
+        X3 = X2;
+        Y3 = Y2;
+        Z3 = R::one(F);
+        return;
+    }
+    E H = R::sub(X2, X1, F);
+    E rr = R::dbl(R::sub(Y2, Y1, F), F);
+    if (R::is_zero(H)) {
+        if (R::is_zero(rr)) {
+            X3 = X1;
+            Y3 = Y1;
+            Z3 = R::one(F);
+            pt_double<R>(X3, Y3, Z3, F);
+        } else {
+            X3 = R::one(F);
+            Y3 = R::one(F);
+            Z3 = R::zero();
+        }
+        return;
+    }
+    pt_chord<R>(H, rr, X1, Y1, X3, Y3, F);
+    Z3 = R::dbl(H, F);
+}
+
+// (X1, Y1, Z1) += affine (x2, y2), complete, Q never at infinity
+// (zksaas_tpu/curves/fused.py::_madd_core): P at infinity gives (x2, y2, 1),
+// P == Q doubles (x2, y2, 1), P == -Q gives (one, one, zero).
+template <class R>
+ZK_HD void pt_madd(typename R::E& X1, typename R::E& Y1, typename R::E& Z1,
+                   const typename R::E& x2, const typename R::E& y2, const FieldParams& F) {
+    typedef typename R::E E;
+    if (R::is_zero(Z1)) {
+        X1 = x2;
+        Y1 = y2;
+        Z1 = R::one(F);
+        return;
+    }
+    E Z1Z1 = R::sqr(Z1, F);
+    E U2 = R::mul(x2, Z1Z1, F);
+    E S2 = R::mul(R::mul(y2, Z1, F), Z1Z1, F);
+    E H = R::sub(U2, X1, F);
+    E rr = R::dbl(R::sub(S2, Y1, F), F);
+    if (R::is_zero(H)) {
+        if (R::is_zero(rr)) {
+            X1 = x2;
+            Y1 = y2;
+            Z1 = R::one(F);
+            pt_double<R>(X1, Y1, Z1, F);
+        } else {
+            X1 = R::one(F);
+            Y1 = R::one(F);
+            Z1 = R::zero();
+        }
+        return;
+    }
+    E X3, Y3;
+    pt_chord<R>(H, rr, X1, Y1, X3, Y3, F);
+    Z1 = R::mul(R::dbl(Z1, F), H, F);
+    X1 = X3;
+    Y1 = Y3;
+}
+
+// ---------------------------------------------------------------------------
+// bitonic network sorting each row of n keys (n a power of two) ascending as
+// unsigned 32-bit values (zksaas_tpu/fields/sortperm.py).  Stage k = 2, 4,
+// .., n runs substages j = k/2, .., 1; pair t of substage j joins keys
+// lo = bitonic_lo(t, j) and lo + j, ascending iff bit log2(k) of lo's place
+// in its row is 0 (so the last stage, k = n, sorts every row ascending).
+// ---------------------------------------------------------------------------
+
+ZK_HD long bitonic_lo(long t, long j) { return ((t & ~(j - 1)) << 1) | (t & (j - 1)); }
+
+ZK_HD void bitonic_cmpex(uint32_t& a, uint32_t& b, long lo, long n, long k) {
+    bool asc = ((lo & (n - 1)) & k) == 0;
+    if (asc ? a > b : a < b) {
+        uint32_t t = a;
+        a = b;
+        b = t;
+    }
 }
 
 // ---------------------------------------------------------------------------

@@ -52,6 +52,60 @@ static void double_loop(const int32_t* x, const int32_t* y, const int32_t* z, in
     }
 }
 
+template <class R>
+static void ring_loop(const int32_t* a, const int32_t* b, int32_t* out, long n,
+                      const uint32_t* params) {
+    FieldParams F = params_from(params);
+    for (long i = 0; i < n; i++) {
+        const long off = i * R::LIMBS16;
+        typename R::E x, y;
+        load16(a + off, x);
+        if (b != nullptr) load16(b + off, y);
+        store16(out + off, b != nullptr ? R::mul(x, y, F) : R::inv(x, F));
+    }
+}
+
+template <class R>
+static void aadd_loop(const int32_t* x1, const int32_t* y1, const int32_t* x2,
+                      const int32_t* y2, const uint8_t* inf1, const uint8_t* inf2, int32_t* ox,
+                      int32_t* oy, int32_t* oz, long n, const uint32_t* params) {
+    FieldParams F = params_from(params);
+    for (long i = 0; i < n; i++) {
+        const long off = i * R::LIMBS16;
+        typename R::E X1, Y1, X2, Y2, X3, Y3, Z3;
+        load16(x1 + off, X1);
+        load16(y1 + off, Y1);
+        load16(x2 + off, X2);
+        load16(y2 + off, Y2);
+        pt_aadd<R>(X1, Y1, inf1[i] != 0, X2, Y2, inf2[i] != 0, X3, Y3, Z3, F);
+        store16(ox + off, X3);
+        store16(oy + off, Y3);
+        store16(oz + off, Z3);
+    }
+}
+
+template <class R>
+static void madd_loop(const int32_t* x1, const int32_t* y1, const int32_t* z1,
+                      const int32_t* x2, const int32_t* y2, const uint8_t* cond, int32_t* ox,
+                      int32_t* oy, int32_t* oz, long n, const uint32_t* params) {
+    FieldParams F = params_from(params);
+    for (long i = 0; i < n; i++) {
+        const long off = i * R::LIMBS16;
+        typename R::E X, Y, Z, X2, Y2;
+        load16(x1 + off, X);
+        load16(y1 + off, Y);
+        load16(z1 + off, Z);
+        if (cond[i]) {
+            load16(x2 + off, X2);
+            load16(y2 + off, Y2);
+            pt_madd<R>(X, Y, Z, X2, Y2, F);
+        }
+        store16(ox + off, X);
+        store16(oy + off, Y);
+        store16(oz + off, Z);
+    }
+}
+
 extern "C" {
 
 int zkc_montmul(const int32_t* a, const int32_t* b, int32_t* out, long n,
@@ -84,6 +138,55 @@ int zkc_point_double(int ncoord, const int32_t* x, const int32_t* y, const int32
         double_loop<RingFq>(x, y, z, ox, oy, oz, n, k, params);
     else
         double_loop<RingFq2>(x, y, z, ox, oy, oz, n, k, params);
+    return 0;
+}
+
+int zkc_ring_mul(int ncoord, const int32_t* a, const int32_t* b, int32_t* out, long n,
+                 const uint32_t* params) {
+    if (ncoord == 1)
+        ring_loop<RingFq>(a, b, out, n, params);
+    else
+        ring_loop<RingFq2>(a, b, out, n, params);
+    return 0;
+}
+
+int zkc_ring_inv(int ncoord, const int32_t* a, int32_t* out, long n, const uint32_t* params) {
+    if (ncoord == 1)
+        ring_loop<RingFq>(a, nullptr, out, n, params);
+    else
+        ring_loop<RingFq2>(a, nullptr, out, n, params);
+    return 0;
+}
+
+int zkc_point_aadd(int ncoord, const int32_t* x1, const int32_t* y1, const int32_t* x2,
+                   const int32_t* y2, const uint8_t* inf1, const uint8_t* inf2, int32_t* ox,
+                   int32_t* oy, int32_t* oz, long n, const uint32_t* params) {
+    if (ncoord == 1)
+        aadd_loop<RingFq>(x1, y1, x2, y2, inf1, inf2, ox, oy, oz, n, params);
+    else
+        aadd_loop<RingFq2>(x1, y1, x2, y2, inf1, inf2, ox, oy, oz, n, params);
+    return 0;
+}
+
+int zkc_point_madd_if(int ncoord, const int32_t* x1, const int32_t* y1, const int32_t* z1,
+                      const int32_t* x2, const int32_t* y2, const uint8_t* cond, int32_t* ox,
+                      int32_t* oy, int32_t* oz, long n, const uint32_t* params) {
+    if (ncoord == 1)
+        madd_loop<RingFq>(x1, y1, z1, x2, y2, cond, ox, oy, oz, n, params);
+    else
+        madd_loop<RingFq2>(x1, y1, z1, x2, y2, cond, ox, oy, oz, n, params);
+    return 0;
+}
+
+// The sort kernels' network, every substage as one loop over its pairs.
+int zkc_sort_u32(int32_t* keys, long total, long n) {
+    uint32_t* k = reinterpret_cast<uint32_t*>(keys);
+    for (long kk = 2; kk <= n; kk <<= 1)
+        for (long j = kk >> 1; j >= 1; j >>= 1)
+            for (long t = 0; t < total / 2; t++) {
+                const long lo = bitonic_lo(t, j);
+                bitonic_cmpex(k[lo], k[lo + j], lo, n, kk);
+            }
     return 0;
 }
 

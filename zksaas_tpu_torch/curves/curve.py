@@ -7,7 +7,8 @@ ops are elementwise over the leading batch dims.
 
 `add`, `add_if` and `double` are kernels 2-4 (curves/point_ops.py), which
 run the CUDA kernels for CUDA tensors and their plain versions for CPU
-tensors.  The scalar multiplications are host loops over those kernels.
+tensors.  The scalar multiplications are host loops over those kernels;
+`msm` takes the bucket Pippenger of curves/pippenger.py for m >= 256.
 Only a = 0 curves (BN254 here) are supported.
 """
 
@@ -281,6 +282,19 @@ class JCurve:
         """P * c for a host-int scalar."""
         s = self.fr.encode([c % self.order], device=P[0].device)[0]
         return self.scalar_mul(P, s.expand(self.batch_shape(P) + s.shape))
+
+    def msm(self, P, scalars_mont):
+        """sum_i P[i] * s[i] along axis 0, dispatched as jcurve.py:443-458
+        does on the TPU: bucket Pippenger (curves/pippenger.py::msm_best)
+        for m >= 256, the windowed scalar_mul_w4 and a tree sum below."""
+        m = self.batch_shape(P)[0]
+        if m >= 256:
+            from .pippenger import msm_best
+
+            return msm_best(self, tuple(torch.movedim(c, 0, len(self.batch_shape(P)) - 1)
+                                        for c in P),
+                            torch.movedim(scalars_mont, 0, -2))
+        return self.sum(self.scalar_mul_w4(P, scalars_mont), axis=0)
 
     def sum(self, P, axis: int = 0):
         """Tree-reduce point sum along a batch axis."""

@@ -6,10 +6,11 @@ element to the king; the king unpacks (dropout-aware), sums the l
 unpacked secrets, and re-broadcasts the total as a repeated packed sharing
 (dmsm/mod.rs:59-102).
 
-The local stage is the JAX package's windowed branch at every size:
-scalar_mul_w4 + sum (dmsm.py:32-36), i.e. one 4-fold double launch and one
-add launch per window.  Bucket Pippenger (the JAX package's TPU branch for
->= 256 chunks) needs five more kernels and is the next slice.
+The local stage dispatches on the chunk count alone, as the JAX package
+does on the TPU (dmsm.py:26-36): bucket Pippenger (curves/pippenger.py::
+msm_best, all parties in one batch) for 256 chunks or more, the windowed
+scalar_mul_w4 + sum below that.  The CPU tests run the same branches as
+the card.
 """
 
 from __future__ import annotations
@@ -18,14 +19,17 @@ from dataclasses import dataclass
 
 from ..curves.curve import JCurve
 from ..curves.fixed_base import fixed_base_mul
+from ..curves.pippenger import msm_best
 from ..pss.pss import PackedSharingParams
 from ..utils.rng import split
 
 
 def d_msm_local(curve: JCurve, bases_share, scalars_share, mask):
     """Per-party local stage: the MSM hot loop plus the input mask."""
-    prods = curve.scalar_mul_w4(bases_share, scalars_share)
-    c_share = curve.sum(prods, axis=-1)
+    if scalars_share.shape[-2] >= 256:
+        c_share = msm_best(curve, bases_share, scalars_share)
+    else:
+        c_share = curve.sum(curve.scalar_mul_w4(bases_share, scalars_share), axis=-1)
     return curve.add(c_share, mask.in_mask)
 
 

@@ -12,7 +12,8 @@ functions are written for few calls, not few operations:
   (`split_columns`), which takes any column below 2^64 to a few times 2^16
   in one step instead of one carry pass per 16 bits;
 * `normalize` then needs one carry pass, and a ripple resolution in one
-  more step only when a column is still >= 2^16 after it;
+  more step only when a column is still >= 2^16 after it (large tensors
+  carry limb by limb instead, with the limbs as rows);
 * a reduction mod p compares all candidates r - j p at once
   (`sub_multiples`).
 """
@@ -60,9 +61,30 @@ def _resolve(x):
     return out & M16, cout[..., -1]
 
 
+# From this many limbs on, a sequential carry with the limbs as rows is the
+# cheaper normalization on the CPU (4x at 2^20 limbs): its passes are
+# O(K) small calls, where _resolve's shifted maxima move the whole tensor
+# several times.
+_SEQ_MIN = 1 << 16
+
+
+def _carry_rows(x):
+    """Exact carries, one limb after the other, with the limbs as rows."""
+    k = x.shape[-1]
+    t = x.reshape(-1, k).t().contiguous()
+    for i in range(k - 1):
+        t[i + 1] += t[i] >> 16
+        t[i] &= M16
+    top = t[k - 1] >> 16
+    t[k - 1] &= M16
+    return t.t().contiguous().reshape(x.shape), top.reshape(x.shape[:-1])
+
+
 def normalize(x):
     """Non-negative redundant columns, each below 2^18, -> exact 16-bit
     limbs and the carry out of the top limb."""
+    if x.numel() >= _SEQ_MIN:
+        return _carry_rows(x)
     x, top = _pass(x)  # columns <= 2^16 + 3
     if int(x.max()) > M16:
         x, c = _resolve(x)

@@ -8,7 +8,7 @@ everything itself and a changed source rebuilds.  `host_core()` builds the
 same arithmetic with g++ for the CPU tests (csrc/host_core.cpp).
 
 Each kernel has one `Kernel` record here.  Its wrapper (fields/montmul.py,
-curves/point_ops.py) adds one to `launches` where it launches the kernel
+curves/point_ops.py, fields/sortperm.py) adds one to `launches` where it launches the kernel
 and nowhere else, so a run can show which kernels its path went through.
 """
 
@@ -58,7 +58,23 @@ POINT_ADD_IF = Kernel(
 POINT_DOUBLE = Kernel(
     "point_double", "zksaas_tpu_torch/csrc/kernels.cu", "zksaas_tpu/curves/fused.py:283"
 )
-KERNELS = (MONTMUL, POINT_ADD, POINT_ADD_IF, POINT_DOUBLE)
+RING_MUL = Kernel(
+    "ring_mul", "zksaas_tpu_torch/csrc/kernels.cu", "zksaas_tpu/curves/fused.py:300"
+)
+RING_INV = Kernel(
+    "ring_inv", "zksaas_tpu_torch/csrc/kernels.cu", "zksaas_tpu/curves/fused.py:392"
+)
+POINT_AADD = Kernel(
+    "point_aadd", "zksaas_tpu_torch/csrc/kernels.cu", "zksaas_tpu/curves/fused.py:375"
+)
+POINT_MADD_IF = Kernel(
+    "point_madd_if", "zksaas_tpu_torch/csrc/kernels.cu", "zksaas_tpu/curves/fused.py:464"
+)
+SORT_U32 = Kernel(
+    "sort_u32", "zksaas_tpu_torch/csrc/kernels.cu", "zksaas_tpu/fields/sortperm.py:77"
+)
+KERNELS = (MONTMUL, POINT_ADD, POINT_ADD_IF, POINT_DOUBLE, RING_MUL, RING_INV, POINT_AADD,
+           POINT_MADD_IF, SORT_U32)
 
 
 def reset_launches() -> None:
@@ -116,7 +132,14 @@ def cuda_lib():
     L.zk_point_double.argtypes = (
         [ctypes.c_int] + [_PTR] * 6 + [ctypes.c_long, ctypes.c_int, _PTR, _PTR]
     )
-    for fn in (L.zk_montmul, L.zk_point_add, L.zk_point_add_if, L.zk_point_double):
+    L.zk_ring_mul.argtypes = [ctypes.c_int] + [_PTR] * 3 + [ctypes.c_long, _PTR, _PTR]
+    L.zk_ring_inv.argtypes = [ctypes.c_int] + [_PTR] * 2 + [ctypes.c_long, _PTR, _PTR]
+    L.zk_point_aadd.argtypes = [ctypes.c_int] + [_PTR] * 9 + [ctypes.c_long, _PTR, _PTR]
+    L.zk_point_madd_if.argtypes = [ctypes.c_int] + [_PTR] * 9 + [ctypes.c_long, _PTR, _PTR]
+    L.zk_sort_u32.argtypes = [_PTR, ctypes.c_long, ctypes.c_long, _PTR]
+    for fn in (L.zk_montmul, L.zk_point_add, L.zk_point_add_if, L.zk_point_double,
+               L.zk_ring_mul, L.zk_ring_inv, L.zk_point_aadd, L.zk_point_madd_if,
+               L.zk_sort_u32):
         fn.restype = ctypes.c_int
     return L
 
@@ -135,6 +158,11 @@ def host_core():
     L.zkc_point_double.argtypes = (
         [ctypes.c_int] + [_PTR] * 6 + [ctypes.c_long, ctypes.c_int, _PTR]
     )
+    L.zkc_ring_mul.argtypes = [ctypes.c_int] + [_PTR] * 3 + [ctypes.c_long, _PTR]
+    L.zkc_ring_inv.argtypes = [ctypes.c_int] + [_PTR] * 2 + [ctypes.c_long, _PTR]
+    L.zkc_point_aadd.argtypes = [ctypes.c_int] + [_PTR] * 9 + [ctypes.c_long, _PTR]
+    L.zkc_point_madd_if.argtypes = [ctypes.c_int] + [_PTR] * 9 + [ctypes.c_long, _PTR]
+    L.zkc_sort_u32.argtypes = [_PTR, ctypes.c_long, ctypes.c_long]
     return L
 
 

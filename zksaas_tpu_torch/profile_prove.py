@@ -66,7 +66,7 @@ def _kernel_table(trace_path: str) -> dict:
     return {
         "device_busy_s": busy,
         "kernels_in_trace": len(kern),
-        "by_name": [{"name": n, "device_s": s, "launches": c} for n, (s, c) in top[:15]],
+        "by_name": [{"name": n, "device_s": s, "launches": c} for n, (s, c) in top[:25]],
     }
 
 
@@ -82,7 +82,9 @@ def _ptxas() -> list:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            base = re.search(r"(montmul|add|double)_kernel", mangled).group(0)
+            base = re.search(
+                r"(montmul|ring_mul|ring_inv|aadd|madd_if|add|double|sort_tile|sort_step)_kernel",
+                mangled).group(0)
             ring = "Fq2" if "RingFq2" in mangled else "Fq" if "RingFq" in mangled else None
             name = f"{base}<{ring}>" if ring else base
             rows.append({"kernel": name})
