@@ -7,15 +7,19 @@
 3. runs each kernel on the card at the main path's shapes and holds it
    bit for bit against its plain PyTorch version on the same inputs
    (tolerance: exact equality), timing both, and torch.sort beside the
-   key sort as its library yardstick;
+   key sort as its library yardstick: every field instance of every
+   kernel, BN254 (16 16-bit limbs), BLS12-381 and BLS12-377 (24 limbs,
+   Fq2 nr = -5 for BLS12-377), G1 and G2;
 4. runs the bucket-Pippenger MSM (curves/pippenger.py::msm_best) on the
-   card for one party's 2^15 G1 points and holds its affine result against
-   scalar_mul_w4 + sum on the same card;
+   card for one party's 2^15 BN254 G1 points and holds its affine result
+   against scalar_mul_w4 + sum on the same card;
 5. drives the flagship, zksaas_tpu_torch.sha256_e2e (the 51,454-constraint
-   SHA-256 circuit, m = 2^16, 8 parties, l = 2, BN254), with every launch
-   count set to 0 just before and read just after, and asserts that the
-   pairing check passes and that every kernel launched, in the whole run
-   and in the timed prove;
+   SHA-256 circuit, m = 2^16, 8 parties, l = 2), first over BN254, then
+   over BLS12-381, each with every launch count set to 0 just before and
+   read just after, and asserts that the pairing check passes, that every
+   kernel launched, in the whole run and in the timed prove, and that the
+   BLS12-381 prove went through the BLS12-381 instance of every point and
+   ring kernel;
 6. prints the kernels line and, last, the device line.
 
 Exits non-zero, before printing any result, when no CUDA device is present
@@ -40,9 +44,6 @@ import torch  # noqa: E402
 # throughput, compute capability 9.0) x the card's max SM clock.
 PEAK_BYTES = 3.35e12
 PEAK_OPS = None
-# 32-bit multiply instructions per BN254 Montgomery product: 8x8 a*b and
-# 8x8 m*p wide products (lo + hi each) and 8 m's.
-OPS_PER_MUL = 2 * (64 + 64) + 8
 MULS_ADD, MULS_DBL_BRANCH, MULS_DOUBLE = 16, 15, 7
 # Montgomery products per lane of the new point kernels' branches
 MULS_AADD, MULS_MADD, MULS_MADD_NEG = 6, 11, 4
@@ -74,6 +75,14 @@ def bound(nbytes, ops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def ops_per_mul(spec):
+    """32-bit multiply instructions per Montgomery product over NL 32-bit
+    limbs: NL x NL a*b and NL x NL m*p wide products (lo + hi each) and NL
+    m's (264 at NL = 8, 588 at NL = 12)."""
+    nl = spec.nlimbs // 2
+    return 2 * (2 * nl * nl) + nl
+
+
 def check_montmul(spec, n, gen):
     from zksaas_tpu_torch import kernels
     from zksaas_tpu_torch.fields.field import field
@@ -81,17 +90,17 @@ def check_montmul(spec, n, gen):
 
     F = field(spec)
     a, b = F.rand(gen, (n,), "cuda"), F.rand(gen, (n,), "cuda")
-    before = kernels.MONTMUL.launches
+    saved = kernels.save_launches()
     out = montmul(spec, a, b)
     torch.cuda.synchronize()
     plain_ms = cuda_ms(lambda: montmul_plain(spec, a.long(), b.long()), 1)
     ref = montmul_plain(spec, a.long(), b.long())
     err = max_err([out], [ref])
     ms = cuda_ms(lambda: montmul(spec, a, b), 20)
-    kernels.MONTMUL.launches = before
-    bms, by = bound(3 * n * 16 * 4, n * OPS_PER_MUL)
-    return dict(case=f"{spec.name} n=2^{n.bit_length() - 1}", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    kernels.restore_launches(saved)
+    bms, by = bound(3 * n * spec.nlimbs * 4, n * ops_per_mul(spec))
+    return dict(case=f"{spec.name} n=2^{n.bit_length() - 1}", field=spec.name, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
 
 def _v(m, c):
@@ -152,22 +161,24 @@ def check_points(curve, n, gen):
     spec, nc = curve.spec, curve._ncoord
     P, Q, cond, cases = test_points(curve, n, gen)
     ring_muls = 1 if nc == 1 else 3
-    nbytes_coord = n * 16 * nc * 4
+    opm = ops_per_mul(spec)
+    coord = spec.nlimbs * nc * 4  # bytes per coordinate
+    nbytes_coord = n * coord
     normal = ~(cases["pin"] | cases["qin"] | cases["neg"] | cases["same"])
     dbl_lanes = cases["same"] & ~(cases["pin"] | cases["qin"])
     neg_lanes = cases["neg"] & ~(cases["pin"] | cases["qin"])
     add_muls = (int(normal.sum()) * MULS_ADD + int(dbl_lanes.sum()) * MULS_DBL_BRANCH
                 + int(neg_lanes.sum()) * 8)
-    saved = [k.launches for k in kernels.KERNELS]
+    saved = kernels.save_launches()
     rows = []
     tag = f"{curve.name} n=2^{n.bit_length() - 1}"
 
     out = po.point_add(spec, nc, P, Q)
     ref = po.point_add_plain(spec, nc, P, Q)
     torch.cuda.synchronize()
-    bms, by = bound(9 * nbytes_coord, add_muls * ring_muls * OPS_PER_MUL)
+    bms, by = bound(9 * nbytes_coord, add_muls * ring_muls * opm)
     rows.append(("point_add", dict(
-        case=tag, max_abs_err=max_err(out, ref),
+        case=tag, field=spec.name, max_abs_err=max_err(out, ref),
         ms=cuda_ms(lambda: po.point_add(spec, nc, P, Q), 10),
         plain_ms=cuda_ms(lambda: po.point_add_plain(spec, nc, P, Q), 1),
         bound_ms=bms, bound_by=by)))
@@ -176,10 +187,10 @@ def check_points(curve, n, gen):
     ref = po.point_add_if_plain(spec, nc, P, Q, cond)
     torch.cuda.synchronize()
     frac = float(cond.float().mean())
-    bms, by = bound(6 * nbytes_coord + int(cond.sum()) * 3 * 16 * nc * 4 + n,
-                    add_muls * frac * ring_muls * OPS_PER_MUL)
+    bms, by = bound(6 * nbytes_coord + int(cond.sum()) * 3 * coord + n,
+                    add_muls * frac * ring_muls * opm)
     rows.append(("point_add_if", dict(
-        case=tag, max_abs_err=max_err(out, ref),
+        case=tag, field=spec.name, max_abs_err=max_err(out, ref),
         ms=cuda_ms(lambda: po.point_add_if(spec, nc, P, Q, cond), 10),
         plain_ms=cuda_ms(lambda: po.point_add_if_plain(spec, nc, P, Q, cond), 1),
         bound_ms=bms, bound_by=by)))
@@ -188,14 +199,13 @@ def check_points(curve, n, gen):
         out = po.point_double(spec, nc, P, k)
         ref = po.point_double_plain(spec, nc, P, k)
         torch.cuda.synchronize()
-        bms, by = bound(6 * nbytes_coord, n * k * MULS_DOUBLE * ring_muls * OPS_PER_MUL)
+        bms, by = bound(6 * nbytes_coord, n * k * MULS_DOUBLE * ring_muls * opm)
         rows.append(("point_double", dict(
-            case=f"{tag} k={k}", max_abs_err=max_err(out, ref),
+            case=f"{tag} k={k}", field=spec.name, max_abs_err=max_err(out, ref),
             ms=cuda_ms(lambda: po.point_double(spec, nc, P, k), 10),
             plain_ms=cuda_ms(lambda: po.point_double_plain(spec, nc, P, k), 1),
             bound_ms=bms, bound_by=by)))
-    for kern, c in zip(kernels.KERNELS, saved):
-        kern.launches = c  # comparison launches do not count
+    kernels.restore_launches(saved)  # comparison launches do not count
     return rows
 
 
@@ -209,14 +219,17 @@ def check_ring(curve, n, gen):
     shape = (n,) + curve.R.coord_shape[:-1]
     a, b = curve.R.F.rand(gen, shape, "cuda"), curve.R.F.rand(gen, shape, "cuda")
     a[:4] = 0
-    saved = [k.launches for k in kernels.KERNELS]
+    saved = kernels.save_launches()
     rows = []
     ring_muls = 1 if nc == 1 else 3
+    opm = ops_per_mul(spec)
+    coord = spec.nlimbs * nc * 4
     out, ref = po.ring_mul(spec, nc, a, b), po.ring_mul_plain(spec, nc, a, b)
     torch.cuda.synchronize()
-    bms, by = bound(3 * n * 64 * nc, n * ring_muls * OPS_PER_MUL)
+    bms, by = bound(3 * n * coord, n * ring_muls * opm)
     rows.append(("ring_mul", dict(
-        case=f"{curve.name} n=2^{n.bit_length() - 1}", max_abs_err=max_err([out], [ref]),
+        case=f"{curve.name} n=2^{n.bit_length() - 1}", field=spec.name,
+        max_abs_err=max_err([out], [ref]),
         ms=cuda_ms(lambda: po.ring_mul(spec, nc, a, b), 20),
         plain_ms=cuda_ms(lambda: po.ring_mul_plain(spec, nc, a, b), 1),
         bound_ms=bms, bound_by=by)))
@@ -225,14 +238,13 @@ def check_ring(curve, n, gen):
     fermat = e.bit_length() - 1 + bin(e).count("1") - 1  # squares + products
     out, ref = po.ring_inv(spec, nc, x), po.ring_inv_plain(spec, nc, x)
     torch.cuda.synchronize()
-    bms, by = bound(2 * 1024 * 64 * nc, 1024 * (fermat + (0 if nc == 1 else 4)) * OPS_PER_MUL)
+    bms, by = bound(2 * 1024 * coord, 1024 * (fermat + (0 if nc == 1 else 4)) * opm)
     rows.append(("ring_inv", dict(
-        case=f"{curve.name} n=1024", max_abs_err=max_err([out], [ref]),
+        case=f"{curve.name} n=1024", field=spec.name, max_abs_err=max_err([out], [ref]),
         ms=cuda_ms(lambda: po.ring_inv(spec, nc, x), 5),
         plain_ms=cuda_ms(lambda: po.ring_inv_plain(spec, nc, x), 1),
         bound_ms=bms, bound_by=by)))
-    for kern, c in zip(kernels.KERNELS, saved):
-        kern.launches = c
+    kernels.restore_launches(saved)
     return rows
 
 
@@ -245,9 +257,10 @@ def check_affine_adds(curve, n_aadd, n_madd, gen):
     from zksaas_tpu_torch.curves import point_ops as po
 
     spec, nc = curve.spec, curve._ncoord
-    coord = 64 * nc
+    coord = spec.nlimbs * nc * 4
     ring_muls = 1 if nc == 1 else 3
-    saved = [k.launches for k in kernels.KERNELS]
+    opm = ops_per_mul(spec)
+    saved = kernels.save_launches()
     rows = []
 
     P, Q, kind = affine_pairs(curve, n_aadd, gen)
@@ -258,19 +271,23 @@ def check_affine_adds(curve, n_aadd, n_madd, gen):
     muls = (int((live & ~samex).sum()) * MULS_AADD
             + int((live & samex & samey).sum()) * MULS_DOUBLE)
 
-    def plain():  # in slices of 2^20 lanes: the int64 temporaries of 2^22 G2 lanes pass 80 GB
-        parts = [po.point_aadd_plain(spec, nc, tuple(c[i : i + (1 << 20)] for c in P),
-                                     tuple(c[i : i + (1 << 20)] for c in Q),
-                                     inf1[i : i + (1 << 20)], inf2[i : i + (1 << 20)])
-                 for i in range(0, n_aadd, 1 << 20)]
+    # the plain version in slices: the int64 temporaries of 2^22 G2 lanes
+    # pass 80 GB; 2^20 lanes of 16 limbs, 2^19 of the 1.5x wider 24
+    sl = 1 << 20 if spec.nlimbs == 16 else 1 << 19
+
+    def plain():
+        parts = [po.point_aadd_plain(spec, nc, tuple(c[i : i + sl] for c in P),
+                                     tuple(c[i : i + sl] for c in Q),
+                                     inf1[i : i + sl], inf2[i : i + sl])
+                 for i in range(0, n_aadd, sl)]
         return tuple(torch.cat(cs) for cs in zip(*parts))
 
     out = po.point_aadd(spec, nc, P, Q, inf1, inf2)
     err = max_err(out, plain())
     del out
-    bms, by = bound(7 * n_aadd * coord + 2 * n_aadd, muls * ring_muls * OPS_PER_MUL)
+    bms, by = bound(7 * n_aadd * coord + 2 * n_aadd, muls * ring_muls * opm)
     rows.append(("point_aadd", dict(
-        case=f"{curve.name} n=2^{n_aadd.bit_length() - 1}", max_abs_err=err,
+        case=f"{curve.name} n=2^{n_aadd.bit_length() - 1}", field=spec.name, max_abs_err=err,
         ms=cuda_ms(lambda: po.point_aadd(spec, nc, P, Q, inf1, inf2), 5),
         plain_ms=cuda_ms(plain, 1), bound_ms=bms, bound_by=by)))
     del P, Q, inf1, inf2
@@ -290,14 +307,13 @@ def check_affine_adds(curve, n_aadd, n_madd, gen):
     ref = po.point_madd_if_plain(spec, nc, A, N, cond)
     torch.cuda.synchronize()
     bms, by = bound(6 * n_madd * coord + n_madd + int(cond.sum()) * 2 * coord,
-                    muls * ring_muls * OPS_PER_MUL)
+                    muls * ring_muls * opm)
     rows.append(("point_madd_if", dict(
-        case=f"{curve.name} n={n_madd}", max_abs_err=max_err(out, ref),
+        case=f"{curve.name} n={n_madd}", field=spec.name, max_abs_err=max_err(out, ref),
         ms=cuda_ms(lambda: po.point_madd_if(spec, nc, A, N, cond), 10),
         plain_ms=cuda_ms(lambda: po.point_madd_if_plain(spec, nc, A, N, cond), 1),
         bound_ms=bms, bound_by=by)))
-    for kern, c in zip(kernels.KERNELS, saved):
-        kern.launches = c
+    kernels.restore_launches(saved)
     return rows
 
 
@@ -310,7 +326,7 @@ def check_sort(rows_, n, gen):
 
     keys = torch.randint(-(1 << 31), 1 << 31, (rows_, n), generator=gen,
                          dtype=torch.int64).int().to("cuda")
-    before = kernels.SORT_U32.launches
+    saved = kernels.save_launches()
     out, ref = sort_u32(keys), sort_u32_plain(keys)
     torch.cuda.synchronize()
     wide = keys.long() & 0xFFFFFFFF
@@ -321,7 +337,7 @@ def check_sort(rows_, n, gen):
                plain_ms=cuda_ms(lambda: sort_u32_plain(keys), 3),
                library_ms=cuda_ms(lambda: torch.sort(wide, dim=-1), 10),
                bound_ms=bms, bound_by=by)
-    kernels.SORT_U32.launches = before
+    kernels.restore_launches(saved)
     return [("sort_u32", row)]
 
 
@@ -332,7 +348,7 @@ def check_pippenger(curve, m, gen):
     from zksaas_tpu_torch import kernels
     from zksaas_tpu_torch.curves.pippenger import msm_best
 
-    saved = [k.launches for k in kernels.KERNELS]
+    saved = kernels.save_launches()
     P, _, kind = affine_pairs(curve, m, gen)
     inf = curve.infinity((m,), "cuda")
     P = tuple(torch.where(_v(kind == 3, c), o, c).contiguous()
@@ -348,8 +364,7 @@ def check_pippenger(curve, m, gen):
         out = fn()
         torch.cuda.synchronize()
         times[name] = (time.perf_counter() - t0, curve.decode(tuple(c.reshape((1,) + c.shape[-curve._ncoord:]) for c in out)))
-    for kern, c in zip(kernels.KERNELS, saved):
-        kern.launches = c
+    kernels.restore_launches(saved)
     equal = times["msm_best"][1] == times["w4_sum"][1]
     return dict(case=f"{curve.name} m=2^{m.bit_length() - 1}, one party", equal=equal,
                 msm_best_s=times["msm_best"][0], w4_sum_s=times["w4_sum"][0])
@@ -380,37 +395,35 @@ def main():
     log(f"peak: {PEAK_BYTES:.3e} B/s; {PEAK_OPS:.4e} int32 multiplies/s ({sms} SMs x 64 x {mhz:.0f} MHz)")
 
     from zksaas_tpu_torch import kernels
-    from zksaas_tpu_torch.curves.curve import curve_g1, curve_g2
-    from zksaas_tpu_torch.fields.spec import BN254_FQ, BN254_FR
+    from zksaas_tpu_torch.curves.curve import CURVE_FAMILIES, curve_g1, curve_g2
+    from zksaas_tpu_torch.fields.spec import BLS12_377_FQ, BLS12_381_FQ, BN254_FQ, BN254_FR
 
     t0 = time.perf_counter()
     kernels.cuda_lib()
-    log(f"build: kernels built in {time.perf_counter() - t0:.1f} s")
+    log(f"build: {len(kernels.cuda_sources())} CUDA sources, one nvcc each, built in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator().manual_seed(2026)
     cases = {k.name: [] for k in kernels.KERNELS}
-    for spec in (BN254_FR, BN254_FQ):
-        row = check_montmul(spec, 1 << 20, gen)
-        cases["montmul"].append(row)
-        log(f"check montmul {json.dumps(row)}")
-    for curve, lg in ((curve_g1(), 18), (curve_g2(), 16)):
-        for name, row in check_points(curve, 1 << lg, gen):
+
+    def record(rows):
+        for name, row in rows:
             cases[name].append(row)
             log(f"check {name} {json.dumps(row)}")
-    # flagship shapes: the inversion tree and affine products over 8 x 2^15
+
+    for spec in (BN254_FR, BN254_FQ, BLS12_381_FQ, BLS12_377_FQ):
+        record([("montmul", check_montmul(spec, 1 << 20, gen))])
+    # every field instance at the flagship's shapes: points at 2^18 (G1)
+    # and 2^16 (G2); the inversion tree and affine products over 8 x 2^15
     # points, tree level 1 over 8 x 2^20 / 2 slots, the level-0 queries over
-    # 8 x 32 windows x 255 buckets, the key sort over 8 rows of 2^20 keys
-    checks = [lambda c: check_ring(c, 1 << 18, gen),
-              lambda c: check_affine_adds(c, 1 << 22, 8 * 32 * 255, gen)]
-    for curve in (curve_g1(), curve_g2()):
-        for chk in checks:
-            for name, row in chk(curve):
-                cases[name].append(row)
-                log(f"check {name} {json.dumps(row)}")
+    # 8 x 32 windows x 255 buckets; the key sort over 8 rows of 2^20 keys
+    for fam in CURVE_FAMILIES:
+        for curve, lg in ((curve_g1(fam), 18), (curve_g2(fam), 16)):
+            record(check_points(curve, 1 << lg, gen))
+            record(check_ring(curve, 1 << 18, gen))
+            record(check_affine_adds(curve, 1 << 22, 8 * 32 * 255, gen))
             torch.cuda.empty_cache()
-    for name, row in check_sort(8, 1 << 20, gen):
-        cases[name].append(row)
-        log(f"check {name} {json.dumps(row)}")
+    record(check_sort(8, 1 << 20, gen))
     for name, rows in cases.items():
         bad = [r for r in rows if r["max_abs_err"] != 0]
         if bad:
@@ -422,19 +435,30 @@ def main():
 
     from zksaas_tpu_torch import sha256_e2e
 
-    kernels.reset_launches()
-    res = sha256_e2e.main(device="cuda")
-    path_launches = {k.name: k.launches for k in kernels.KERNELS}
-    prove_launches = res["detail"]["launches"]
-    log(f"flagship {json.dumps(res)}")
-    if not res["verified"]:
-        raise SystemExit("flagship proof failed the pairing check")
-    if res["detail"]["constraints"] != 51454 or res["detail"]["domain"] != 1 << 16:
-        raise SystemExit(f"flagship ran at the wrong size: {res['detail']}")
-    idle = [n for n, c in path_launches.items() if c == 0]
-    idle += [n for n, c in prove_launches.items() if c == 0]
-    if idle:
-        raise SystemExit(f"kernels never launched on the main path: {idle}")
+    # the main path over BN254, then its BLS12-381 configuration; the
+    # counts are set to 0 just before each and read just after
+    paths = {}
+    for fam in ("bn254", "bls12_381"):
+        kernels.reset_launches()
+        res = sha256_e2e.main(device="cuda", curve=fam)
+        paths[fam] = dict(res=res, launches={k.name: k.launches for k in kernels.KERNELS},
+                          by_field={k.name: dict(k.by_field) for k in kernels.KERNELS})
+        log(f"flagship {json.dumps(res)}")
+        if not res["verified"]:
+            raise SystemExit(f"{fam} flagship proof failed the pairing check")
+        if res["detail"]["constraints"] != 51454 or res["detail"]["domain"] != 1 << 16:
+            raise SystemExit(f"{fam} flagship ran at the wrong size: {res['detail']}")
+        prove = res["detail"]["launches"]
+        idle = [n for n, c in paths[fam]["launches"].items() if c == 0]
+        idle += [n for n, c in prove.items() if c == 0]
+        if idle:
+            raise SystemExit(f"kernels never launched on the {fam} path: {idle}")
+        fq = f"{fam}_fq"
+        missed = [n for n, by in res["detail"]["launches_by_field"].items()
+                  if n not in ("montmul", "sort_u32") and not by.get(fq)]
+        if missed:
+            raise SystemExit(f"the {fam} prove never launched the {fq} instance of {missed}")
+        torch.cuda.empty_cache()
 
     out = []
     for k in kernels.KERNELS:
@@ -442,7 +466,13 @@ def main():
         head = rows[0]
         out.append({
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-            "launches": path_launches[k.name], "prove_launches": prove_launches[k.name],
+            "launches": sum(p["launches"][k.name] for p in paths.values()),
+            "launches_by_path": {fam: {"total": p["launches"][k.name],
+                                       "by_field": p["by_field"][k.name]}
+                                 for fam, p in paths.items()},
+            "prove_launches": {fam: {"total": p["res"]["detail"]["launches"][k.name],
+                                     "by_field": p["res"]["detail"]["launches_by_field"][k.name]}
+                               for fam, p in paths.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head.get("library_ms"),

@@ -1,8 +1,10 @@
 """The port stands alone and runs on the card by default.
 
 A fresh interpreter imports every module of zksaas_tpu_torch and must end
-up with neither jax nor zksaas_tpu loaded.  The entry points must refuse to
-run without a CUDA device unless the caller asks for device="cpu", and
+up with neither jax nor zksaas_tpu loaded.  The entry points (the flagship
+over BN254 and BLS12-381, msm_best over BN254 and BLS12-381, ...)
+must refuse to run without a CUDA device unless the caller asks for
+device="cpu", and
 chip_smoke.py must fail, printing no result, both without a card and in a
 directory that holds nothing else of the repo.
 """
@@ -48,7 +50,7 @@ from zksaas_tpu_torch.curves.curve import curve_g1
 from zksaas_tpu_torch.curves.pippenger import msm_best
 from zksaas_tpu_torch.fields.sortperm import sort_u32
 from zksaas_tpu_torch.fields.field import field
-from zksaas_tpu_torch.fields.spec import BN254_FR
+from zksaas_tpu_torch.fields.spec import BLS12_381_FR, BN254_FR
 from zksaas_tpu_torch.groth16.prove import pack_witness
 from zksaas_tpu_torch.groth16.qap import qap_pack
 from zksaas_tpu_torch.pss.pss import pss
@@ -62,11 +64,14 @@ pp = pss(BN254_FR, 2)
 
 ENTRY_POINTS = {
     "sha256_e2e": "sha256_e2e.main({})",
+    "sha256_e2e_bls12_381": "sha256_e2e.main(curve='bls12_381'{})",
     "field_encode": "field(BN254_FR).encode([1, 2]{})",
     "qap_pack": "qap_pack(pp, r1cs, z, generator(1){})",
     "pack_witness": "pack_witness(pp, [1, 2, 3], generator(1){})",
     "msm_best": "msm_best(curve_g1(), curve_g1().infinity((1,){0}), field(BN254_FR).zeros((1,){0}))",
     "sort_u32": "sort_u32(field(BN254_FR).zeros((256,){0})[:, 0])",
+    "msm_best_bls12_381_g1": "msm_best(curve_g1('bls12_381'), "
+    "curve_g1('bls12_381').infinity((1,){0}), field(BLS12_381_FR).zeros((1,){0}))",
 }
 
 
@@ -81,7 +86,7 @@ except RuntimeError as e:
 else:
     raise SystemExit("ran without a GPU")
 """
-    if name != "sha256_e2e":  # the full flagship is too big for a CPU test
+    if not name.startswith("sha256_e2e"):  # the full flagship is too big for a CPU test
         code += call.format(", device='cpu'") + "\n"
     res = _run(code + "print('ok')\n")
     assert res.returncode == 0, res.stderr

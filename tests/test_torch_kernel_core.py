@@ -74,7 +74,8 @@ def test_core_montmul_matches_plain(core, spec):
     a[0] = 0
     b[1] = F.const(1, device="cpu")
     out = torch.empty_like(a)
-    core.zkc_montmul(_ptr(a), _ptr(b), _ptr(out), 300, kernels.field_params(spec).ctypes.data)
+    nl, _, prm = kernels.field_args(spec)
+    core.zkc_montmul(nl, _ptr(a), _ptr(b), _ptr(out), 300, prm)
     assert torch.equal(out, montmul_plain(spec, a.long(), b.long()).int())
 
 
@@ -87,10 +88,9 @@ def test_core_add_matches_plain(core, ncoord, with_cond):
     rng = np.random.default_rng(3)
     cond = torch.from_numpy(rng.random(n) < 0.5) if with_cond else torch.ones(n, dtype=torch.bool)
     out = tuple(torch.empty_like(P[0]) for _ in range(3))
-    core.zkc_point_add_if(
-        ncoord, *map(_ptr, (*P, *Q)), _ptr(cond), *map(_ptr, out), n,
-        kernels.field_params(C.spec).ctypes.data,
-    )
+    nl, nr, prm = kernels.field_args(C.spec)
+    core.zkc_point_add_if(nl, nr, ncoord, *map(_ptr, (*P, *Q)), _ptr(cond), *map(_ptr, out), n,
+                          prm)
     if with_cond:
         ref = point_ops.point_add_if_plain(C.spec, ncoord, P, Q, cond)
     else:
@@ -106,9 +106,8 @@ def test_core_double_matches_plain(core, ncoord, k):
     n = 100
     P, _ = _points(C, n, seed=40 + ncoord)
     out = tuple(torch.empty_like(P[0]) for _ in range(3))
-    core.zkc_point_double(
-        ncoord, *map(_ptr, P), *map(_ptr, out), n, k, kernels.field_params(C.spec).ctypes.data
-    )
+    nl, nr, prm = kernels.field_args(C.spec)
+    core.zkc_point_double(nl, nr, ncoord, *map(_ptr, P), *map(_ptr, out), n, k, prm)
     for o, r in zip(out, point_ops.point_double_plain(C.spec, ncoord, P, k)):
         assert torch.equal(o, r)
 
@@ -122,12 +121,12 @@ def test_core_ring_matches_plain(core, ncoord, op):
     a, b = (C.R.F.rand(gen, (n,) + C.R.coord_shape[:-1], device="cpu") for _ in range(2))
     a[0] = 0
     out = torch.empty_like(a)
-    prm = kernels.field_params(C.spec).ctypes.data
+    nl, nr, prm = kernels.field_args(C.spec)
     if op == "mul":
-        core.zkc_ring_mul(ncoord, _ptr(a), _ptr(b), _ptr(out), n, prm)
+        core.zkc_ring_mul(nl, nr, ncoord, _ptr(a), _ptr(b), _ptr(out), n, prm)
         ref = point_ops.ring_mul_plain(C.spec, ncoord, a, b)
     else:
-        core.zkc_ring_inv(ncoord, _ptr(a), _ptr(out), n, prm)
+        core.zkc_ring_inv(nl, nr, ncoord, _ptr(a), _ptr(out), n, prm)
         ref = point_ops.ring_inv_plain(C.spec, ncoord, a)
     assert torch.equal(out, ref)
 
@@ -144,8 +143,8 @@ def test_core_aadd_matches_plain(core, ncoord):
     inf1 = torch.from_numpy(rng.random(n) < 0.2)
     inf2 = torch.from_numpy(rng.random(n) < 0.2)
     out = tuple(torch.empty_like(P[0]) for _ in range(3))
-    core.zkc_point_aadd(ncoord, *map(_ptr, (*P, *Q, inf1, inf2, *out)), n,
-                        kernels.field_params(C.spec).ctypes.data)
+    nl, nr, prm = kernels.field_args(C.spec)
+    core.zkc_point_aadd(nl, nr, ncoord, *map(_ptr, (*P, *Q, inf1, inf2, *out)), n, prm)
     for o, r in zip(out, point_ops.point_aadd_plain(C.spec, ncoord, P, Q, inf1, inf2)):
         assert torch.equal(o, r)
 
@@ -159,8 +158,8 @@ def test_core_madd_if_matches_plain(core, ncoord):
     Qa = C.to_affine(Q)[:2]  # the node is never at infinity: fold it into cond
     cond = torch.from_numpy(np.random.default_rng(5).random(n) < 0.7) & fin
     out = tuple(torch.empty_like(P[0]) for _ in range(3))
-    core.zkc_point_madd_if(ncoord, *map(_ptr, (*P, *Qa, cond, *out)), n,
-                           kernels.field_params(C.spec).ctypes.data)
+    nl, nr, prm = kernels.field_args(C.spec)
+    core.zkc_point_madd_if(nl, nr, ncoord, *map(_ptr, (*P, *Qa, cond, *out)), n, prm)
     for o, r in zip(out, point_ops.point_madd_if_plain(C.spec, ncoord, P, Qa, cond)):
         assert torch.equal(o, r)
 

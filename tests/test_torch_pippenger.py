@@ -224,7 +224,7 @@ def test_msm_best_pads_and_chunks(monkeypatch):
     C, G = curve_g1(), JREF[1]
     P, s, want = _msm_case(C, G, 24, seed=60)
     assert C.decode(C.msm(P, s)) == [want]
-    monkeypatch.setattr(pippenger, "MAX_SLOTS", 32 * 16)
+    monkeypatch.setattr(pippenger, "MAX_SLOT_BYTES", 32 * 16 * 3 * C.spec.nlimbs * 4)
     assert C.decode(pippenger.msm_best(C, P, s)) == [want]
 
 

@@ -127,7 +127,7 @@ def test_jax_dealer_outputs_through_convert(case):
     jfft, jdeg = j_circom_masks(jpp, jq.dom.n, ks[1])
     jmasks = JProveMasks(jfft, jdeg, [JMsmMask.zero(jpp, j_curve_g1())] * 4,
                          JMsmMask.zero(jpp, j_curve_g2()))
-    masks = convert.prove_masks_from(jmasks, DEV)
+    masks = convert.prove_masks_from(jmasks, BN254_FR, DEV)
     np.testing.assert_array_equal(convert.to_numpy(masks.fft_masks[4].out_mask),
                                   np.asarray(jfft[4].out_mask))
     back = convert.prove_masks_to_numpy(masks)
@@ -146,7 +146,7 @@ def test_jax_dealer_outputs_through_convert(case):
     ss, vk = case["ss"], case["vk"]
     crs = pack_proving_key_device(ss, vk, pp, curve_g1(), curve_g2(), device=DEV)
     jcrs = JPackedProvingKeyShare(**convert.crs_to_numpy(crs))
-    crs2 = convert.crs_from(jcrs, DEV)
+    crs2 = convert.crs_from(jcrs, BN254_FR, DEV)
     for name in ("s", "u", "w", "h", "v"):
         for x, y in zip(getattr(crs, name), getattr(crs2, name)):
             assert torch.equal(x, y)

@@ -16,12 +16,17 @@ by the 216-bit big-endian encodings of a and b (matching circomlib's
 Sha256_2 input convention: two 216-bit field inputs, single 512-bit
 padded block) and exposes the 256-bit digest as two 128-bit public
 outputs.  Verified against hashlib in tests.
+
+The circuit takes the scalar field as `spec`: its wires are boolean and its
+coefficients at most 2^215, and its outputs are 128-bit, so it holds in any
+field above 2^216 (BN254, BLS12-381 and BLS12-377 Fr).
 """
 
 from __future__ import annotations
 
 import hashlib
 
+from ..fields.spec import BN254_FR, FieldSpec
 from .r1cs import LC, ConstraintBuilder
 
 _H0 = [
@@ -191,15 +196,17 @@ class _Sha256Synth:
         ]
 
 
-def sha256_two_inputs(a_val: int, b_val: int):
-    """Build the SHA256_2-style circuit: hash the single padded block
-    holding 216-bit big-endian a || b, expose the digest as two 128-bit
-    public outputs.  Returns (r1cs, full_assignment, digest_bytes)."""
+def sha256_two_inputs(a_val: int, b_val: int, spec: FieldSpec = BN254_FR):
+    """Build the SHA256_2-style circuit over the scalar field `spec`: hash
+    the single padded block holding 216-bit big-endian a || b, expose the
+    digest as two 128-bit public outputs.  Returns (r1cs,
+    full_assignment, digest_bytes)."""
     assert 0 <= a_val < (1 << 216) and 0 <= b_val < (1 << 216)
+    assert spec.p > 1 << 216, spec.name
     msg = a_val.to_bytes(27, "big") + b_val.to_bytes(27, "big")  # 54 bytes
     digest = hashlib.sha256(msg).digest()
 
-    cb = ConstraintBuilder()
+    cb = ConstraintBuilder(spec)
     synth = _Sha256Synth(cb)
 
     # inputs as witnesses, bit-decomposed (216 bits each, MSB first)

@@ -11,6 +11,10 @@ holds both can hand the same CRS, shares and masks to both.
   point tuples     points_to_torch / points_to_numpy
   PackedProvingKeyShare, PackedQAPShare, FftMask, DegRedMask, MsmMask,
   ProveMasks       *_from / *_to_numpy (a dict of the dataclass's fields)
+
+The *_from functions take the circuit's scalar field spec (BN254, BLS12-381
+or BLS12-377 Fr) and check every array's limb count against it: K limbs for
+scalars, the curve's base field (16 or 24 limbs) for point coordinates.
 """
 
 from __future__ import annotations
@@ -23,17 +27,22 @@ import torch
 from .dist.deg_red import DegRedMask
 from .dist.dfft import FftMask
 from .dist.dmsm import MsmMask
+from .fields.spec import FIELDS
+from .groth16.local import curve_family
 from .groth16.prove import ProveMasks
 from .groth16.proving_key import PackedProvingKeyShare
 from .groth16.qap import PackedQAPShare
 from .ntt.domain import domain
 
 
-def to_torch(a, device="cpu") -> torch.Tensor:
-    """uint32 limb array -> int32 tensor (values < 2^16, so bit-equal)."""
+def to_torch(a, device="cpu", nlimbs: int | None = None) -> torch.Tensor:
+    """uint32 limb array -> int32 tensor (values < 2^16, so bit-equal);
+    with `nlimbs`, the last axis must hold that many limbs."""
     arr = np.asarray(a)
     if arr.dtype != np.uint32:
         raise TypeError(f"expected uint32 limbs, got {arr.dtype}")
+    if nlimbs is not None and (arr.ndim == 0 or arr.shape[-1] != nlimbs):
+        raise ValueError(f"expected {nlimbs} limbs on the last axis, got shape {arr.shape}")
     if arr.size and int(arr.max()) >> 16:
         raise ValueError("limbs must be < 2^16")
     return torch.from_numpy(arr.astype(np.int32)).to(device)
@@ -43,8 +52,8 @@ def to_numpy(t) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.uint32)
 
 
-def points_to_torch(P, device="cpu") -> tuple:
-    return tuple(to_torch(c, device) for c in P)
+def points_to_torch(P, device="cpu", nlimbs: int | None = None) -> tuple:
+    return tuple(to_torch(c, device, nlimbs) for c in P)
 
 
 def points_to_numpy(P) -> tuple:
@@ -56,8 +65,13 @@ _CRS_CLEAR = ("a_query0", "b_g1_query0", "b_g2_query0", "delta_g1", "delta_g2",
               "alpha_g1", "beta_g1", "beta_g2")
 
 
-def crs_from(src, device="cpu") -> PackedProvingKeyShare:
-    kw = {k: points_to_torch(getattr(src, k), device) for k in _CRS_POINTS}
+def _fq_limbs(spec) -> int:
+    """Limbs of a point coordinate on the curve whose scalar field is spec."""
+    return FIELDS[f"{curve_family(spec)}_fq"].nlimbs
+
+
+def crs_from(src, spec, device="cpu") -> PackedProvingKeyShare:
+    kw = {k: points_to_torch(getattr(src, k), device, _fq_limbs(spec)) for k in _CRS_POINTS}
     kw.update({k: getattr(src, k) for k in _CRS_CLEAR})
     return PackedProvingKeyShare(**kw)
 
@@ -74,9 +88,9 @@ def qap_from(src, spec, device="cpu") -> PackedQAPShare:
     return PackedQAPShare(
         num_inputs=src.num_inputs,
         num_constraints=src.num_constraints,
-        a=to_torch(src.a, device),
-        b=to_torch(src.b, device),
-        c=to_torch(src.c, device),
+        a=to_torch(src.a, device, spec.nlimbs),
+        b=to_torch(src.b, device, spec.nlimbs),
+        c=to_torch(src.c, device, spec.nlimbs),
         dom=domain(spec, src.dom.n),
     )
 
@@ -86,24 +100,28 @@ def qap_to_numpy(q: PackedQAPShare) -> dict:
                 a=to_numpy(q.a), b=to_numpy(q.b), c=to_numpy(q.c))
 
 
-def fft_mask_from(src, device="cpu") -> FftMask:
-    return FftMask(to_torch(src.in_mask, device), to_torch(src.out_mask, device))
+def fft_mask_from(src, spec, device="cpu") -> FftMask:
+    k = spec.nlimbs
+    return FftMask(to_torch(src.in_mask, device, k), to_torch(src.out_mask, device, k))
 
 
-def degred_mask_from(src, device="cpu") -> DegRedMask:
-    return DegRedMask(to_torch(src.in_mask, device), to_torch(src.out_mask, device))
+def degred_mask_from(src, spec, device="cpu") -> DegRedMask:
+    k = spec.nlimbs
+    return DegRedMask(to_torch(src.in_mask, device, k), to_torch(src.out_mask, device, k))
 
 
-def msm_mask_from(src, device="cpu") -> MsmMask:
-    return MsmMask(points_to_torch(src.in_mask, device), points_to_torch(src.out_mask, device))
+def msm_mask_from(src, spec, device="cpu") -> MsmMask:
+    k = _fq_limbs(spec)
+    return MsmMask(points_to_torch(src.in_mask, device, k),
+                   points_to_torch(src.out_mask, device, k))
 
 
-def prove_masks_from(src, device="cpu") -> ProveMasks:
+def prove_masks_from(src, spec, device="cpu") -> ProveMasks:
     return ProveMasks(
-        fft_masks=[fft_mask_from(m, device) for m in src.fft_masks],
-        degred_mask=degred_mask_from(src.degred_mask, device),
-        g1_msm_masks=[msm_mask_from(m, device) for m in src.g1_msm_masks],
-        g2_msm_mask=msm_mask_from(src.g2_msm_mask, device),
+        fft_masks=[fft_mask_from(m, spec, device) for m in src.fft_masks],
+        degred_mask=degred_mask_from(src.degred_mask, spec, device),
+        g1_msm_masks=[msm_mask_from(m, spec, device) for m in src.g1_msm_masks],
+        g2_msm_mask=msm_mask_from(src.g2_msm_mask, spec, device),
     )
 
 

@@ -1,4 +1,4 @@
-// Field and point arithmetic shared by the CUDA kernels (kernels.cu) and
+// Field and point arithmetic shared by the CUDA kernels (kernels.cuh) and
 // the g++ host build used by the CPU tests (host_core.cpp).
 //
 // Replaces the in-kernel limb library of the JAX package
@@ -7,14 +7,16 @@
 // _madd_core), its Fermat inverse (_finv_call) and the compare-exchange of
 // the bitonic sort (zksaas_tpu/fields/sortperm.py).
 //
-// An Fq element is 8 little-endian 32-bit limbs in Montgomery form.  The
-// tensors at the kernel boundary hold 16 16-bit limbs per element
-// (R = 2^256 either way), so limb pairs are packed on load and split on
-// store.  Every function returns the canonical residue (< p), so results
-// are bit-equal to the reference whatever the order of the carries.
+// An Fq element is NL little-endian 32-bit limbs in Montgomery form: NL = 8
+// for BN254's Fq and every scalar field (256-bit), NL = 12 for the BLS12
+// base fields (384-bit).  The tensors at the kernel boundary hold 2 NL
+// 16-bit limbs per element (R = 2^(32 NL) either way), so limb pairs are
+// packed on load and split on store.  Every function returns the canonical
+// residue (< p), so results are bit-equal to the reference whatever the
+// order of the carries.
 //
-// Only BN254 is instantiated here: 8 limbs for Fq/Fr and the Fq2
-// non-residue -1.  BLS12-381/377 (12 limbs, nr = -5) is a later slice.
+// The coordinate rings are Fq (G1) and Fq2 = Fq[u]/(u^2 - nr) (G2) with
+// nr = -1 (BN254, BLS12-381) or nr = -5 (BLS12-377).
 
 #pragma once
 #include <stdint.h>
@@ -27,34 +29,37 @@
 
 namespace zk {
 
-constexpr int NL = 8;  // 32-bit limbs per element
-
 // p, Montgomery one (R mod p) and n0 = -p^-1 mod 2^32, set by the host.
+template <int NL>
 struct FieldParams {
     uint32_t p[NL];
     uint32_t one[NL];
     uint32_t n0;
 };
 
+template <int NL>
 struct Fq {
     uint32_t v[NL];
 };
 
-ZK_HD Fq fq_zero() {
-    Fq r;
+template <int NL>
+ZK_HD Fq<NL> fq_zero() {
+    Fq<NL> r;
 #pragma unroll
     for (int i = 0; i < NL; i++) r.v[i] = 0;
     return r;
 }
 
-ZK_HD Fq fq_one(const FieldParams& F) {
-    Fq r;
+template <int NL>
+ZK_HD Fq<NL> fq_one(const FieldParams<NL>& F) {
+    Fq<NL> r;
 #pragma unroll
     for (int i = 0; i < NL; i++) r.v[i] = F.one[i];
     return r;
 }
 
-ZK_HD bool fq_is_zero(const Fq& a) {
+template <int NL>
+ZK_HD bool fq_is_zero(const Fq<NL>& a) {
     uint32_t acc = 0;
 #pragma unroll
     for (int i = 0; i < NL; i++) acc |= a.v[i];
@@ -62,8 +67,9 @@ ZK_HD bool fq_is_zero(const Fq& a) {
 }
 
 // s (with carry bit `top` above limb NL-1) reduced once by p; s < 2p.
-ZK_HD Fq fq_reduce_once(const Fq& s, uint32_t top, const FieldParams& F) {
-    Fq d;
+template <int NL>
+ZK_HD Fq<NL> fq_reduce_once(const Fq<NL>& s, uint32_t top, const FieldParams<NL>& F) {
+    Fq<NL> d;
     uint32_t br = 0;
 #pragma unroll
     for (int i = 0; i < NL; i++) {
@@ -74,8 +80,9 @@ ZK_HD Fq fq_reduce_once(const Fq& s, uint32_t top, const FieldParams& F) {
     return (top || !br) ? d : s;
 }
 
-ZK_HD Fq fq_add(const Fq& a, const Fq& b, const FieldParams& F) {
-    Fq s;
+template <int NL>
+ZK_HD Fq<NL> fq_add(const Fq<NL>& a, const Fq<NL>& b, const FieldParams<NL>& F) {
+    Fq<NL> s;
     uint32_t c = 0;
 #pragma unroll
     for (int i = 0; i < NL; i++) {
@@ -86,10 +93,14 @@ ZK_HD Fq fq_add(const Fq& a, const Fq& b, const FieldParams& F) {
     return fq_reduce_once(s, c, F);
 }
 
-ZK_HD Fq fq_dbl(const Fq& a, const FieldParams& F) { return fq_add(a, a, F); }
+template <int NL>
+ZK_HD Fq<NL> fq_dbl(const Fq<NL>& a, const FieldParams<NL>& F) {
+    return fq_add(a, a, F);
+}
 
-ZK_HD Fq fq_sub(const Fq& a, const Fq& b, const FieldParams& F) {
-    Fq d;
+template <int NL>
+ZK_HD Fq<NL> fq_sub(const Fq<NL>& a, const Fq<NL>& b, const FieldParams<NL>& F) {
+    Fq<NL> d;
     uint32_t br = 0;
 #pragma unroll
     for (int i = 0; i < NL; i++) {
@@ -109,10 +120,11 @@ ZK_HD Fq fq_sub(const Fq& a, const Fq& b, const FieldParams& F) {
     return d;
 }
 
-// CIOS Montgomery product a*b*2^-256 mod p.  Needs a*b < 2^256 * p, which
-// holds for canonical operands and for one raw operand < 2^256 times a
+// CIOS Montgomery product a*b*R^-1 mod p, R = 2^(32 NL).  Needs a*b < R p,
+// which holds for canonical operands and for one raw operand < R times a
 // canonical one (Field.rand reduces raw limbs that way).
-ZK_HD Fq fq_mul(const Fq& a, const Fq& b, const FieldParams& F) {
+template <int NL>
+ZK_HD Fq<NL> fq_mul(const Fq<NL>& a, const Fq<NL>& b, const FieldParams<NL>& F) {
     uint32_t t[NL + 2];
 #pragma unroll
     for (int i = 0; i < NL + 2; i++) t[i] = 0;
@@ -141,7 +153,7 @@ ZK_HD Fq fq_mul(const Fq& a, const Fq& b, const FieldParams& F) {
         t[NL - 1] = (uint32_t)uv;
         t[NL] = t[NL + 1] + (uint32_t)(uv >> 32);
     }
-    Fq r;
+    Fq<NL> r;
 #pragma unroll
     for (int i = 0; i < NL; i++) r.v[i] = t[i];
     return fq_reduce_once(r, t[NL], F);
@@ -151,7 +163,8 @@ ZK_HD Fq fq_mul(const Fq& a, const Fq& b, const FieldParams& F) {
 // right over the exponent bits below the top one, one square and, for a set
 // bit, one product each.  The exponent is the same for every thread, so the
 // branch never diverges.  0 maps to 0.
-ZK_HD Fq fq_inv(const Fq& a, const FieldParams& F) {
+template <int NL>
+ZK_HD Fq<NL> fq_inv(const Fq<NL>& a, const FieldParams<NL>& F) {
     uint32_t e[NL];
     uint32_t br = 2;
     for (int i = 0; i < NL; i++) {  // e = p - 2
@@ -161,7 +174,7 @@ ZK_HD Fq fq_inv(const Fq& a, const FieldParams& F) {
     }
     int top = 32 * NL - 1;
     while (!((e[top >> 5] >> (top & 31)) & 1u)) top--;
-    Fq acc = a;
+    Fq<NL> acc = a;
     for (int i = top - 1; i >= 0; i--) {
         acc = fq_mul(acc, acc, F);
         if ((e[i >> 5] >> (i & 31)) & 1u) acc = fq_mul(acc, a, F);
@@ -170,55 +183,71 @@ ZK_HD Fq fq_inv(const Fq& a, const FieldParams& F) {
 }
 
 // ---------------------------------------------------------------------------
-// coordinate rings: Fq (G1) and Fq2 = Fq[u]/(u^2 + 1) (BN254 G2)
+// coordinate rings: Fq (G1) and Fq2 = Fq[u]/(u^2 - nr) (G2)
 // ---------------------------------------------------------------------------
 
+template <int N>
 struct RingFq {
-    typedef Fq E;
-    static constexpr int LIMBS16 = 2 * NL;  // 16-bit limbs per coordinate
-    static ZK_HD E add(const E& a, const E& b, const FieldParams& F) { return fq_add(a, b, F); }
-    static ZK_HD E sub(const E& a, const E& b, const FieldParams& F) { return fq_sub(a, b, F); }
-    static ZK_HD E dbl(const E& a, const FieldParams& F) { return fq_dbl(a, F); }
-    static ZK_HD E mul(const E& a, const E& b, const FieldParams& F) { return fq_mul(a, b, F); }
-    static ZK_HD E sqr(const E& a, const FieldParams& F) { return fq_mul(a, a, F); }
-    static ZK_HD E inv(const E& a, const FieldParams& F) { return fq_inv(a, F); }
+    static constexpr int NL = N;
+    typedef Fq<N> E;
+    typedef FieldParams<N> P;
+    static constexpr int LIMBS16 = 2 * N;  // 16-bit limbs per coordinate
+    static ZK_HD E add(const E& a, const E& b, const P& F) { return fq_add(a, b, F); }
+    static ZK_HD E sub(const E& a, const E& b, const P& F) { return fq_sub(a, b, F); }
+    static ZK_HD E dbl(const E& a, const P& F) { return fq_dbl(a, F); }
+    static ZK_HD E mul(const E& a, const E& b, const P& F) { return fq_mul(a, b, F); }
+    static ZK_HD E sqr(const E& a, const P& F) { return fq_mul(a, a, F); }
+    static ZK_HD E inv(const E& a, const P& F) { return fq_inv(a, F); }
     static ZK_HD bool is_zero(const E& a) { return fq_is_zero(a); }
-    static ZK_HD E one(const FieldParams& F) { return fq_one(F); }
-    static ZK_HD E zero() { return fq_zero(); }
+    static ZK_HD E one(const P& F) { return fq_one(F); }
+    static ZK_HD E zero() { return fq_zero<N>(); }
 };
 
+template <int NL>
 struct Fq2 {
-    Fq c0, c1;
+    Fq<NL> c0, c1;
 };
 
+// Fq2 with u^2 = nr = -NR: NR = 1 for BN254 and BLS12-381, 5 for BLS12-377.
+template <int N, int NR>
 struct RingFq2 {
-    typedef Fq2 E;
-    static constexpr int LIMBS16 = 4 * NL;
-    static ZK_HD E add(const E& a, const E& b, const FieldParams& F) {
+    static_assert(NR == 1 || NR == 5, "Fq2 is built for nr = -1 and nr = -5");
+    static constexpr int NL = N;
+    typedef Fq2<N> E;
+    typedef FieldParams<N> P;
+    static constexpr int LIMBS16 = 4 * N;
+    static ZK_HD E add(const E& a, const E& b, const P& F) {
         return E{fq_add(a.c0, b.c0, F), fq_add(a.c1, b.c1, F)};
     }
-    static ZK_HD E sub(const E& a, const E& b, const FieldParams& F) {
+    static ZK_HD E sub(const E& a, const E& b, const P& F) {
         return E{fq_sub(a.c0, b.c0, F), fq_sub(a.c1, b.c1, F)};
     }
-    static ZK_HD E dbl(const E& a, const FieldParams& F) {
-        return E{fq_dbl(a.c0, F), fq_dbl(a.c1, F)};
+    static ZK_HD E dbl(const E& a, const P& F) { return E{fq_dbl(a.c0, F), fq_dbl(a.c1, F)}; }
+    // -nr * x: x itself, or 4x + x by doublings (fused.py's muli)
+    static ZK_HD Fq<N> neg_nr(const Fq<N>& x, const P& F) {
+        if constexpr (NR == 1) {
+            return x;
+        } else {
+            return fq_add(fq_dbl(fq_dbl(x, F), F), x, F);
+        }
     }
-    // Karatsuba with nr = -1: (t0 - t1, (a0 + a1)(b0 + b1) - t0 - t1)
-    static ZK_HD E mul(const E& a, const E& b, const FieldParams& F) {
-        Fq t0 = fq_mul(a.c0, b.c0, F);
-        Fq t1 = fq_mul(a.c1, b.c1, F);
-        Fq t2 = fq_mul(fq_add(a.c0, a.c1, F), fq_add(b.c0, b.c1, F), F);
-        return E{fq_sub(t0, t1, F), fq_sub(fq_sub(t2, t0, F), t1, F)};
+    // Karatsuba: (t0 + nr t1, (a0 + a1)(b0 + b1) - t0 - t1)
+    static ZK_HD E mul(const E& a, const E& b, const P& F) {
+        Fq<N> t0 = fq_mul(a.c0, b.c0, F);
+        Fq<N> t1 = fq_mul(a.c1, b.c1, F);
+        Fq<N> t2 = fq_mul(fq_add(a.c0, a.c1, F), fq_add(b.c0, b.c1, F), F);
+        return E{fq_sub(t0, neg_nr(t1, F), F), fq_sub(fq_sub(t2, t0, F), t1, F)};
     }
-    static ZK_HD E sqr(const E& a, const FieldParams& F) { return mul(a, a, F); }
-    // through the norm: (c0 + c1 u)^-1 = (c0 - c1 u) / (c0^2 + c1^2)
-    static ZK_HD E inv(const E& a, const FieldParams& F) {
-        Fq ninv = fq_inv(fq_add(fq_mul(a.c0, a.c0, F), fq_mul(a.c1, a.c1, F), F), F);
-        return E{fq_mul(a.c0, ninv, F), fq_sub(fq_zero(), fq_mul(a.c1, ninv, F), F)};
+    static ZK_HD E sqr(const E& a, const P& F) { return mul(a, a, F); }
+    // through the norm: (c0 + c1 u)^-1 = (c0 - c1 u) / (c0^2 - nr c1^2)
+    static ZK_HD E inv(const E& a, const P& F) {
+        Fq<N> norm = fq_add(fq_mul(a.c0, a.c0, F), neg_nr(fq_mul(a.c1, a.c1, F), F), F);
+        Fq<N> ninv = fq_inv(norm, F);
+        return E{fq_mul(a.c0, ninv, F), fq_sub(fq_zero<N>(), fq_mul(a.c1, ninv, F), F)};
     }
     static ZK_HD bool is_zero(const E& a) { return fq_is_zero(a.c0) && fq_is_zero(a.c1); }
-    static ZK_HD E one(const FieldParams& F) { return E{fq_one(F), fq_zero()}; }
-    static ZK_HD E zero() { return E{fq_zero(), fq_zero()}; }
+    static ZK_HD E one(const P& F) { return E{fq_one(F), fq_zero<N>()}; }
+    static ZK_HD E zero() { return E{fq_zero<N>(), fq_zero<N>()}; }
 };
 
 // ---------------------------------------------------------------------------
@@ -228,7 +257,7 @@ struct RingFq2 {
 
 template <class R>
 ZK_HD void pt_double(typename R::E& X, typename R::E& Y, typename R::E& Z,
-                     const FieldParams& F) {
+                     const typename R::P& F) {
     typedef typename R::E E;
     E A = R::sqr(X, F);
     E B = R::sqr(Y, F);
@@ -250,7 +279,7 @@ ZK_HD void pt_double(typename R::E& X, typename R::E& Y, typename R::E& Z,
 template <class R>
 ZK_HD void pt_chord(const typename R::E& H, const typename R::E& rr, const typename R::E& U1,
                     const typename R::E& S1, typename R::E& X3, typename R::E& Y3,
-                    const FieldParams& F) {
+                    const typename R::P& F) {
     typedef typename R::E E;
     E I = R::sqr(R::dbl(H, F), F);
     E J = R::mul(H, I, F);
@@ -264,7 +293,7 @@ ZK_HD void pt_chord(const typename R::E& H, const typename R::E& rr, const typen
 template <class R>
 ZK_HD void pt_add(typename R::E& X1, typename R::E& Y1, typename R::E& Z1,
                   const typename R::E& X2, const typename R::E& Y2,
-                  const typename R::E& Z2, const FieldParams& F) {
+                  const typename R::E& Z2, const typename R::P& F) {
     typedef typename R::E E;
     if (R::is_zero(Z2)) return;
     if (R::is_zero(Z1)) {
@@ -307,7 +336,7 @@ template <class R>
 ZK_HD void pt_aadd(const typename R::E& X1, const typename R::E& Y1, bool inf1,
                    const typename R::E& X2, const typename R::E& Y2, bool inf2,
                    typename R::E& X3, typename R::E& Y3, typename R::E& Z3,
-                   const FieldParams& F) {
+                   const typename R::P& F) {
     typedef typename R::E E;
     if (inf2) {
         X3 = X1;
@@ -345,7 +374,7 @@ ZK_HD void pt_aadd(const typename R::E& X1, const typename R::E& Y1, bool inf1,
 // P == Q doubles (x2, y2, 1), P == -Q gives (one, one, zero).
 template <class R>
 ZK_HD void pt_madd(typename R::E& X1, typename R::E& Y1, typename R::E& Z1,
-                   const typename R::E& x2, const typename R::E& y2, const FieldParams& F) {
+                   const typename R::E& x2, const typename R::E& y2, const typename R::P& F) {
     typedef typename R::E E;
     if (R::is_zero(Z1)) {
         X1 = x2;
@@ -398,16 +427,19 @@ ZK_HD void bitonic_cmpex(uint32_t& a, uint32_t& b, long lo, long n, long k) {
 }
 
 // ---------------------------------------------------------------------------
-// boundary layout: 16-bit limbs held in int32, little-endian
+// boundary layout: 16-bit limbs held in int32, little-endian; an Fq2
+// element is c0's 2 NL limbs, then c1's
 // ---------------------------------------------------------------------------
 
-ZK_HD void load16(const int32_t* src, Fq& a) {
+template <int NL>
+ZK_HD void load16(const int32_t* src, Fq<NL>& a) {
 #pragma unroll
     for (int i = 0; i < NL; i++)
         a.v[i] = ((uint32_t)src[2 * i] & 0xFFFFu) | ((uint32_t)src[2 * i + 1] << 16);
 }
 
-ZK_HD void store16(int32_t* dst, const Fq& a) {
+template <int NL>
+ZK_HD void store16(int32_t* dst, const Fq<NL>& a) {
 #pragma unroll
     for (int i = 0; i < NL; i++) {
         dst[2 * i] = (int32_t)(a.v[i] & 0xFFFFu);
@@ -415,18 +447,22 @@ ZK_HD void store16(int32_t* dst, const Fq& a) {
     }
 }
 
-ZK_HD void load16(const int32_t* src, Fq2& a) {
+template <int NL>
+ZK_HD void load16(const int32_t* src, Fq2<NL>& a) {
     load16(src, a.c0);
     load16(src + 2 * NL, a.c1);
 }
 
-ZK_HD void store16(int32_t* dst, const Fq2& a) {
+template <int NL>
+ZK_HD void store16(int32_t* dst, const Fq2<NL>& a) {
     store16(dst, a.c0);
     store16(dst + 2 * NL, a.c1);
 }
 
-ZK_HD FieldParams params_from(const uint32_t* host) {
-    FieldParams F;
+// The host's params array, [p (NL limbs) | R mod p (NL limbs) | n0].
+template <int NL>
+ZK_HD FieldParams<NL> params_from(const uint32_t* host) {
+    FieldParams<NL> F;
     for (int i = 0; i < NL; i++) {
         F.p[i] = host[i];
         F.one[i] = host[NL + i];
@@ -434,5 +470,22 @@ ZK_HD FieldParams params_from(const uint32_t* host) {
     F.n0 = host[2 * NL];
     return F;
 }
+
+// The coordinate rings that are built, by the kernels' (limbs, nr, ncoord)
+// arguments: G1 over 8- or 12-limb Fq (any nr), G2 over Fq2 with (8, -1)
+// BN254, (12, -1) BLS12-381, (12, -5) BLS12-377.  -1 for any other.
+enum RingId { G1_8, G1_12, G2_8_1, G2_12_1, G2_12_5, N_RINGS };
+
+inline int ring_id(int nl, int nr, int ncoord) {
+    if (ncoord == 1) return nl == 8 ? G1_8 : nl == 12 ? G1_12 : -1;
+    if (ncoord != 2) return -1;
+    if (nl == 8 && nr == -1) return G2_8_1;
+    if (nl == 12 && nr == -1) return G2_12_1;
+    if (nl == 12 && nr == -5) return G2_12_5;
+    return -1;
+}
+
+// Returned by an entry point asked for a ring or limb count it was not built for.
+constexpr int NOT_BUILT = -1;
 
 }  // namespace zk

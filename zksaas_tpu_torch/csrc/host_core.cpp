@@ -1,7 +1,7 @@
 // Host build of the kernels' arithmetic (field.cuh) for the CPU tests:
-// the same field and point code the CUDA kernels run, looped over the
-// batch on the CPU and exposed through the same C signatures as
-// kernels.cu (prefix zkc_, no stream).  Built with plain g++ by
+// the same field and point code the CUDA kernels run, for the same rings
+// and limb counts, looped over the batch on the CPU and exposed through the
+// same C signatures as kernels.cu (prefix zkc_, no stream).  Built with plain g++ by
 // zksaas_tpu_torch/kernels.py::host_core(); the tests hold it against the
 // plain PyTorch versions, which are in turn held against the JAX package.
 
@@ -16,7 +16,7 @@ static void add_loop(const int32_t* x1, const int32_t* y1, const int32_t* z1,
                      const int32_t* x2, const int32_t* y2, const int32_t* z2,
                      const uint8_t* cond, int32_t* ox, int32_t* oy, int32_t* oz, long n,
                      const uint32_t* params) {
-    FieldParams F = params_from(params);
+    typename R::P F = params_from<R::NL>(params);
     for (long i = 0; i < n; i++) {
         const long off = i * R::LIMBS16;
         typename R::E X, Y, Z, X2, Y2, Z2;
@@ -38,7 +38,7 @@ static void add_loop(const int32_t* x1, const int32_t* y1, const int32_t* z1,
 template <class R>
 static void double_loop(const int32_t* x, const int32_t* y, const int32_t* z, int32_t* ox,
                         int32_t* oy, int32_t* oz, long n, int k, const uint32_t* params) {
-    FieldParams F = params_from(params);
+    typename R::P F = params_from<R::NL>(params);
     for (long i = 0; i < n; i++) {
         const long off = i * R::LIMBS16;
         typename R::E X, Y, Z;
@@ -55,7 +55,7 @@ static void double_loop(const int32_t* x, const int32_t* y, const int32_t* z, in
 template <class R>
 static void ring_loop(const int32_t* a, const int32_t* b, int32_t* out, long n,
                       const uint32_t* params) {
-    FieldParams F = params_from(params);
+    typename R::P F = params_from<R::NL>(params);
     for (long i = 0; i < n; i++) {
         const long off = i * R::LIMBS16;
         typename R::E x, y;
@@ -69,7 +69,7 @@ template <class R>
 static void aadd_loop(const int32_t* x1, const int32_t* y1, const int32_t* x2,
                       const int32_t* y2, const uint8_t* inf1, const uint8_t* inf2, int32_t* ox,
                       int32_t* oy, int32_t* oz, long n, const uint32_t* params) {
-    FieldParams F = params_from(params);
+    typename R::P F = params_from<R::NL>(params);
     for (long i = 0; i < n; i++) {
         const long off = i * R::LIMBS16;
         typename R::E X1, Y1, X2, Y2, X3, Y3, Z3;
@@ -88,7 +88,7 @@ template <class R>
 static void madd_loop(const int32_t* x1, const int32_t* y1, const int32_t* z1,
                       const int32_t* x2, const int32_t* y2, const uint8_t* cond, int32_t* ox,
                       int32_t* oy, int32_t* oz, long n, const uint32_t* params) {
-    FieldParams F = params_from(params);
+    typename R::P F = params_from<R::NL>(params);
     for (long i = 0; i < n; i++) {
         const long off = i * R::LIMBS16;
         typename R::E X, Y, Z, X2, Y2;
@@ -106,13 +106,12 @@ static void madd_loop(const int32_t* x1, const int32_t* y1, const int32_t* z1,
     }
 }
 
-extern "C" {
-
-int zkc_montmul(const int32_t* a, const int32_t* b, int32_t* out, long n,
-                const uint32_t* params) {
-    FieldParams F = params_from(params);
+template <int NL>
+static int montmul_loop(const int32_t* a, const int32_t* b, int32_t* out, long n,
+                        const uint32_t* params) {
+    FieldParams<NL> F = params_from<NL>(params);
     for (long i = 0; i < n; i++) {
-        Fq x, y;
+        Fq<NL> x, y;
         load16(a + i * 2 * NL, x);
         load16(b + i * 2 * NL, y);
         store16(out + i * 2 * NL, fq_mul(x, y, F));
@@ -120,62 +119,81 @@ int zkc_montmul(const int32_t* a, const int32_t* b, int32_t* out, long n,
     return 0;
 }
 
-int zkc_point_add_if(int ncoord, const int32_t* x1, const int32_t* y1, const int32_t* z1,
-                     const int32_t* x2, const int32_t* y2, const int32_t* z2,
-                     const uint8_t* cond, int32_t* ox, int32_t* oy, int32_t* oz, long n,
-                     const uint32_t* params) {
-    if (ncoord == 1)
-        add_loop<RingFq>(x1, y1, z1, x2, y2, z2, cond, ox, oy, oz, n, params);
-    else
-        add_loop<RingFq2>(x1, y1, z1, x2, y2, z2, cond, ox, oy, oz, n, params);
-    return 0;
+// Calls fn with a value of the ring type that (nl, nr, ncoord) names.
+template <class Fn>
+static int with_ring(int nl, int nr, int ncoord, Fn&& fn) {
+    switch (ring_id(nl, nr, ncoord)) {
+        case G1_8: return fn(RingFq<8>{});
+        case G1_12: return fn(RingFq<12>{});
+        case G2_8_1: return fn(RingFq2<8, 1>{});
+        case G2_12_1: return fn(RingFq2<12, 1>{});
+        case G2_12_5: return fn(RingFq2<12, 5>{});
+        default: return NOT_BUILT;
+    }
 }
 
-int zkc_point_double(int ncoord, const int32_t* x, const int32_t* y, const int32_t* z,
-                     int32_t* ox, int32_t* oy, int32_t* oz, long n, int k,
-                     const uint32_t* params) {
-    if (ncoord == 1)
-        double_loop<RingFq>(x, y, z, ox, oy, oz, n, k, params);
-    else
-        double_loop<RingFq2>(x, y, z, ox, oy, oz, n, k, params);
-    return 0;
+extern "C" {
+
+int zkc_montmul(int nl, const int32_t* a, const int32_t* b, int32_t* out, long n,
+                const uint32_t* params) {
+    if (nl == 8) return montmul_loop<8>(a, b, out, n, params);
+    if (nl == 12) return montmul_loop<12>(a, b, out, n, params);
+    return NOT_BUILT;
 }
 
-int zkc_ring_mul(int ncoord, const int32_t* a, const int32_t* b, int32_t* out, long n,
+int zkc_point_add_if(int nl, int nr, int ncoord, const int32_t* x1, const int32_t* y1,
+                     const int32_t* z1, const int32_t* x2, const int32_t* y2,
+                     const int32_t* z2, const uint8_t* cond, int32_t* ox, int32_t* oy,
+                     int32_t* oz, long n, const uint32_t* params) {
+    return with_ring(nl, nr, ncoord, [&](auto r) {
+        add_loop<decltype(r)>(x1, y1, z1, x2, y2, z2, cond, ox, oy, oz, n, params);
+        return 0;
+    });
+}
+
+int zkc_point_double(int nl, int nr, int ncoord, const int32_t* x, const int32_t* y,
+                     const int32_t* z, int32_t* ox, int32_t* oy, int32_t* oz, long n, int k,
+                     const uint32_t* params) {
+    return with_ring(nl, nr, ncoord, [&](auto r) {
+        double_loop<decltype(r)>(x, y, z, ox, oy, oz, n, k, params);
+        return 0;
+    });
+}
+
+int zkc_ring_mul(int nl, int nr, int ncoord, const int32_t* a, const int32_t* b,
+                 int32_t* out, long n, const uint32_t* params) {
+    return with_ring(nl, nr, ncoord, [&](auto r) {
+        ring_loop<decltype(r)>(a, b, out, n, params);
+        return 0;
+    });
+}
+
+int zkc_ring_inv(int nl, int nr, int ncoord, const int32_t* a, int32_t* out, long n,
                  const uint32_t* params) {
-    if (ncoord == 1)
-        ring_loop<RingFq>(a, b, out, n, params);
-    else
-        ring_loop<RingFq2>(a, b, out, n, params);
-    return 0;
+    return with_ring(nl, nr, ncoord, [&](auto r) {
+        ring_loop<decltype(r)>(a, nullptr, out, n, params);
+        return 0;
+    });
 }
 
-int zkc_ring_inv(int ncoord, const int32_t* a, int32_t* out, long n, const uint32_t* params) {
-    if (ncoord == 1)
-        ring_loop<RingFq>(a, nullptr, out, n, params);
-    else
-        ring_loop<RingFq2>(a, nullptr, out, n, params);
-    return 0;
+int zkc_point_aadd(int nl, int nr, int ncoord, const int32_t* x1, const int32_t* y1,
+                   const int32_t* x2, const int32_t* y2, const uint8_t* inf1,
+                   const uint8_t* inf2, int32_t* ox, int32_t* oy, int32_t* oz, long n,
+                   const uint32_t* params) {
+    return with_ring(nl, nr, ncoord, [&](auto r) {
+        aadd_loop<decltype(r)>(x1, y1, x2, y2, inf1, inf2, ox, oy, oz, n, params);
+        return 0;
+    });
 }
 
-int zkc_point_aadd(int ncoord, const int32_t* x1, const int32_t* y1, const int32_t* x2,
-                   const int32_t* y2, const uint8_t* inf1, const uint8_t* inf2, int32_t* ox,
-                   int32_t* oy, int32_t* oz, long n, const uint32_t* params) {
-    if (ncoord == 1)
-        aadd_loop<RingFq>(x1, y1, x2, y2, inf1, inf2, ox, oy, oz, n, params);
-    else
-        aadd_loop<RingFq2>(x1, y1, x2, y2, inf1, inf2, ox, oy, oz, n, params);
-    return 0;
-}
-
-int zkc_point_madd_if(int ncoord, const int32_t* x1, const int32_t* y1, const int32_t* z1,
-                      const int32_t* x2, const int32_t* y2, const uint8_t* cond, int32_t* ox,
-                      int32_t* oy, int32_t* oz, long n, const uint32_t* params) {
-    if (ncoord == 1)
-        madd_loop<RingFq>(x1, y1, z1, x2, y2, cond, ox, oy, oz, n, params);
-    else
-        madd_loop<RingFq2>(x1, y1, z1, x2, y2, cond, ox, oy, oz, n, params);
-    return 0;
+int zkc_point_madd_if(int nl, int nr, int ncoord, const int32_t* x1, const int32_t* y1,
+                      const int32_t* z1, const int32_t* x2, const int32_t* y2,
+                      const uint8_t* cond, int32_t* ox, int32_t* oy, int32_t* oz, long n,
+                      const uint32_t* params) {
+    return with_ring(nl, nr, ncoord, [&](auto r) {
+        madd_loop<decltype(r)>(x1, y1, z1, x2, y2, cond, ox, oy, oz, n, params);
+        return 0;
+    });
 }
 
 // The sort kernels' network, every substage as one loop over its pairs.

@@ -1,43 +1,54 @@
 // Hand-written Hopper (sm_90a) kernels of the PyTorch port, with a plain C
 // interface for ctypes (zksaas_tpu_torch/kernels.py builds and loads it).
 //
+// Every field-taking kernel is built for the coordinate fields of the
+// three curves: BN254 (8 32-bit limbs, Fq2 nr = -1), BLS12-381 (12 limbs,
+// nr = -1) and BLS12-377 (12 limbs, nr = -5); montmul for 8 limbs (BN254 Fq
+// and every curve's Fr) and 12 (the BLS12 Fq).  The entry points take the
+// limb count `nl` and the non-residue `nr` and return NOT_BUILT (-1) for a
+// combination that was not built.  The point and ring kernels are templates
+// in kernels.cuh, instantiated one ring per ring_*.cu source.
+//
 // Kernel 1, montmul: replaces zksaas_tpu/fields/pallas_mul.py::_mul_call
 // (montmul_pallas), the TPU path of Field.mul.
-//   Bound: 3 x 16 int32 limbs = 192 B moved per element against ~130
-//   32-bit multiply-adds, so at large batches the card's 3.35 TB/s
-//   memory, not its integer units, sets the floor.
-//   Design: one thread per element, CIOS over 8 32-bit limbs held in
-//   registers; each thread reads its two 64 B rows with 16 B vector loads
-//   and writes one row the same way, so a warp touches whole sectors.
+//   Bound: 3 x 2 NL int32 limbs (192 B at 8 limbs, 288 B at 12) moved per
+//   element against 2 NL^2 + NL 32-bit multiplies (136, 300), so at large
+//   batches the card's 3.35 TB/s memory, not its integer units, sets the
+//   floor.
+//   Design: one thread per element, CIOS over NL 32-bit limbs held in
+//   registers; each thread reads its two rows with 16 B vector loads and
+//   writes one row the same way, so a warp touches whole sectors.
 //
 // Kernels 2-4, point_add / point_add_if / point_double(k): replace
 // zksaas_tpu/curves/fused.py::_add_call (fused_add), ::_add_select_call
 // (fused_add_select) and ::_double_call (fused_double).
 //   Bound: 12-25 Montgomery products per element (x3 in G2) against
-//   192-576 B moved, so these are bound by 32-bit integer multiply
+//   6-9 coordinates moved, so these are bound by 32-bit integer multiply
 //   throughput, not memory.
 //   Design: one thread per point, the whole formula in registers; the
 //   special cases (infinity operands, P == Q, P == -Q, cond false) are
 //   branches, which diverge only on the rare lanes that take them, so the
 //   doubling inside the complete add is not paid on every lane as the
 //   TPU's selects pay it.  __launch_bounds__(128) lets the G2 formulas,
-//   which keep ~30 Fq2 temporaries live, spill to L1 instead of failing.
+//   which keep ~30 Fq2 temporaries live (72 words a point at 12 limbs),
+//   spill to L1 instead of failing.
 //
 // Kernels 5-9 run the bucket-Pippenger MSM (curves/pippenger.py):
 //
 // Kernel 5, ring_mul: replaces zksaas_tpu/curves/fused.py::_fmul_call
 //   (pfmul), the product of the batch-inversion tree and the affine
-//   conversion.  Bound: memory (192 B against one Montgomery product in
-//   Fq, as montmul; 384 B against three in Fq2).  Design: as montmul, one
-//   thread per element; the Fq2 Karatsuba product is one launch instead
-//   of three montmuls and the add/sub glue between them.
+//   conversion.  Bound: memory (3 coordinates against one Montgomery
+//   product in Fq, as montmul; three products in Fq2).  Design: as
+//   montmul, one thread per element; the Fq2 Karatsuba product is one
+//   launch instead of three montmuls and the add/sub glue between them.
 //
 // Kernel 6, ring_inv: replaces fused.py::_finv_call (pfinv), the root of
 //   the inversion tree (at most 1,024 elements).  Bound: the serial chain
-//   of ~380 Montgomery products per element; at 1,024 elements only 8
-//   blocks run, so its time is that chain's latency, not a rate.  Design:
-//   one thread per element; the exponent p - 2 comes from the field's
-//   params in registers (the TPU read its bits from SMEM).
+//   of ~380 (BN254) or ~570 (BLS12) Montgomery products per element; at
+//   1,024 elements only 8 blocks run, so its time is that chain's
+//   latency, not a rate.  Design: one thread per element; the exponent
+//   p - 2 comes from the field's params in registers (the TPU read its
+//   bits from SMEM).
 //
 // Kernel 7, point_aadd: replaces fused.py::_aadd_call (paddaa), tree level
 //   1 over the sorted affine leaves.  Bound: memory by count (4
@@ -52,7 +63,8 @@
 //
 // Kernel 9, sort_u32: replaces zksaas_tpu/fields/sortperm.py::_stage_call
 //   (one bitonic k-stage, launched in sequence by _sort_call), the
-//   (window | digit | slot) key sort.  Bound: the n/2 x log2(n)(log2(n)+1)/2
+//   (window | digit | slot) key sort; it does not depend on the field.
+//   Bound: the n/2 x log2(n)(log2(n)+1)/2
 //   compare-exchanges (the keys are read and written once), in practice
 //   one pass over the keys per substage.  Design: the TPU kept the whole
 //   array in VMEM and ran a stage per launch; the card has no such memory,
@@ -69,172 +81,29 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "field.cuh"
+#include "kernels.cuh"
 
 using namespace zk;
 
 namespace {
 
-constexpr int THREADS = 128;
-
-__device__ __forceinline__ void vload(const int32_t* src, Fq& a) {
-    const int4* s = reinterpret_cast<const int4*>(src);
-#pragma unroll
-    for (int q = 0; q < NL / 2; q++) {
-        int4 w = s[q];
-        a.v[2 * q] = ((uint32_t)w.x & 0xFFFFu) | ((uint32_t)w.y << 16);
-        a.v[2 * q + 1] = ((uint32_t)w.z & 0xFFFFu) | ((uint32_t)w.w << 16);
-    }
-}
-
-__device__ __forceinline__ void vstore(int32_t* dst, const Fq& a) {
-    int4* d = reinterpret_cast<int4*>(dst);
-#pragma unroll
-    for (int q = 0; q < NL / 2; q++) {
-        int4 w;
-        w.x = (int32_t)(a.v[2 * q] & 0xFFFFu);
-        w.y = (int32_t)(a.v[2 * q] >> 16);
-        w.z = (int32_t)(a.v[2 * q + 1] & 0xFFFFu);
-        w.w = (int32_t)(a.v[2 * q + 1] >> 16);
-        d[q] = w;
-    }
-}
-
-__device__ __forceinline__ void vload(const int32_t* src, Fq2& a) {
-    vload(src, a.c0);
-    vload(src + 2 * NL, a.c1);
-}
-
-__device__ __forceinline__ void vstore(int32_t* dst, const Fq2& a) {
-    vstore(dst, a.c0);
-    vstore(dst + 2 * NL, a.c1);
-}
-
+template <int NL>
 __global__ void __launch_bounds__(256)
 montmul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-               int32_t* __restrict__ out, long n, FieldParams F) {
+               int32_t* __restrict__ out, long n, FieldParams<NL> F) {
     long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    Fq x, y;
+    Fq<NL> x, y;
     vload(a + i * 2 * NL, x);
     vload(b + i * 2 * NL, y);
     vstore(out + i * 2 * NL, fq_mul(x, y, F));
 }
 
-template <class R>
-__global__ void __launch_bounds__(THREADS)
-add_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
-           const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
-           const int32_t* __restrict__ y2, const int32_t* __restrict__ z2,
-           const uint8_t* __restrict__ cond, int32_t* __restrict__ ox,
-           int32_t* __restrict__ oy, int32_t* __restrict__ oz, long n, FieldParams F) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const long off = i * R::LIMBS16;
-    typename R::E X, Y, Z;
-    vload(x1 + off, X);
-    vload(y1 + off, Y);
-    vload(z1 + off, Z);
-    if (cond == nullptr || cond[i]) {
-        typename R::E X2, Y2, Z2;
-        vload(x2 + off, X2);
-        vload(y2 + off, Y2);
-        vload(z2 + off, Z2);
-        pt_add<R>(X, Y, Z, X2, Y2, Z2, F);
-    }
-    vstore(ox + off, X);
-    vstore(oy + off, Y);
-    vstore(oz + off, Z);
-}
-
-template <class R>
-__global__ void __launch_bounds__(THREADS)
-double_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
-              const int32_t* __restrict__ z, int32_t* __restrict__ ox,
-              int32_t* __restrict__ oy, int32_t* __restrict__ oz, long n, int k,
-              FieldParams F) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const long off = i * R::LIMBS16;
-    typename R::E X, Y, Z;
-    vload(x + off, X);
-    vload(y + off, Y);
-    vload(z + off, Z);
-    for (int j = 0; j < k; j++) pt_double<R>(X, Y, Z, F);
-    vstore(ox + off, X);
-    vstore(oy + off, Y);
-    vstore(oz + off, Z);
-}
-
-template <class R>
-__global__ void __launch_bounds__(THREADS)
-ring_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-                int32_t* __restrict__ out, long n, FieldParams F) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const long off = i * R::LIMBS16;
-    typename R::E x, y;
-    vload(a + off, x);
-    vload(b + off, y);
-    vstore(out + off, R::mul(x, y, F));
-}
-
-template <class R>
-__global__ void __launch_bounds__(THREADS)
-ring_inv_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out, long n,
-                FieldParams F) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const long off = i * R::LIMBS16;
-    typename R::E x;
-    vload(a + off, x);
-    vstore(out + off, R::inv(x, F));
-}
-
-template <class R>
-__global__ void __launch_bounds__(THREADS)
-aadd_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
-            const int32_t* __restrict__ x2, const int32_t* __restrict__ y2,
-            const uint8_t* __restrict__ inf1, const uint8_t* __restrict__ inf2,
-            int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz,
-            long n, FieldParams F) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const long off = i * R::LIMBS16;
-    typename R::E X1, Y1, X2, Y2, X3, Y3, Z3;
-    vload(x1 + off, X1);
-    vload(y1 + off, Y1);
-    vload(x2 + off, X2);
-    vload(y2 + off, Y2);
-    pt_aadd<R>(X1, Y1, inf1[i] != 0, X2, Y2, inf2[i] != 0, X3, Y3, Z3, F);
-    vstore(ox + off, X3);
-    vstore(oy + off, Y3);
-    vstore(oz + off, Z3);
-}
-
-template <class R>
-__global__ void __launch_bounds__(THREADS)
-madd_if_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
-               const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
-               const int32_t* __restrict__ y2, const uint8_t* __restrict__ cond,
-               int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz,
-               long n, FieldParams F) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const long off = i * R::LIMBS16;
-    typename R::E X, Y, Z;
-    vload(x1 + off, X);
-    vload(y1 + off, Y);
-    vload(z1 + off, Z);
-    if (cond[i]) {
-        typename R::E X2, Y2;
-        vload(x2 + off, X2);
-        vload(y2 + off, Y2);
-        pt_madd<R>(X, Y, Z, X2, Y2, F);
-    }
-    vstore(ox + off, X);
-    vstore(oy + off, Y);
-    vstore(oz + off, Z);
+template <int NL>
+int launch_montmul(const int32_t* a, const int32_t* b, int32_t* out, long n,
+                   const uint32_t* params, cudaStream_t s) {
+    montmul_kernel<NL><<<blocks(n, 256), 256, 0, s>>>(a, b, out, n, params_from<NL>(params));
+    return (int)cudaGetLastError();
 }
 
 constexpr long SORT_TILE = 2048;  // keys per block in shared memory
@@ -273,105 +142,82 @@ sort_step_kernel(uint32_t* __restrict__ keys, long total, long n, long k, long j
     keys[lo + j] = b;
 }
 
-inline unsigned blocks(long n, int threads) { return (unsigned)((n + threads - 1) / threads); }
-
-template <class R>
-int launch_add(const int32_t* x1, const int32_t* y1, const int32_t* z1, const int32_t* x2,
-               const int32_t* y2, const int32_t* z2, const uint8_t* cond, int32_t* ox,
-               int32_t* oy, int32_t* oz, long n, const uint32_t* params, void* stream) {
-    add_kernel<R><<<blocks(n, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
-        x1, y1, z1, x2, y2, z2, cond, ox, oy, oz, n, params_from(params));
-    return (int)cudaGetLastError();
+const RingOps* ring_ops(int nl, int nr, int ncoord) {
+    static const RingOps* const table[N_RINGS] = {&OPS_G1_8, &OPS_G1_12, &OPS_G2_8_1,
+                                                  &OPS_G2_12_1, &OPS_G2_12_5};
+    const int id = ring_id(nl, nr, ncoord);
+    return id < 0 ? nullptr : table[id];
 }
 
 }  // namespace
 
 extern "C" {
 
-int zk_montmul(const int32_t* a, const int32_t* b, int32_t* out, long n,
+int zk_montmul(int nl, const int32_t* a, const int32_t* b, int32_t* out, long n,
                const uint32_t* params, void* stream) {
-    montmul_kernel<<<blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(a, b, out, n,
-                                                                      params_from(params));
-    return (int)cudaGetLastError();
-}
-
-int zk_point_add(int ncoord, const int32_t* x1, const int32_t* y1, const int32_t* z1,
-                 const int32_t* x2, const int32_t* y2, const int32_t* z2, int32_t* ox,
-                 int32_t* oy, int32_t* oz, long n, const uint32_t* params, void* stream) {
-    if (ncoord == 1)
-        return launch_add<RingFq>(x1, y1, z1, x2, y2, z2, nullptr, ox, oy, oz, n, params, stream);
-    return launch_add<RingFq2>(x1, y1, z1, x2, y2, z2, nullptr, ox, oy, oz, n, params, stream);
-}
-
-int zk_point_add_if(int ncoord, const int32_t* x1, const int32_t* y1, const int32_t* z1,
-                    const int32_t* x2, const int32_t* y2, const int32_t* z2,
-                    const uint8_t* cond, int32_t* ox, int32_t* oy, int32_t* oz, long n,
-                    const uint32_t* params, void* stream) {
-    if (ncoord == 1)
-        return launch_add<RingFq>(x1, y1, z1, x2, y2, z2, cond, ox, oy, oz, n, params, stream);
-    return launch_add<RingFq2>(x1, y1, z1, x2, y2, z2, cond, ox, oy, oz, n, params, stream);
-}
-
-int zk_point_double(int ncoord, const int32_t* x, const int32_t* y, const int32_t* z,
-                    int32_t* ox, int32_t* oy, int32_t* oz, long n, int k,
-                    const uint32_t* params, void* stream) {
-    FieldParams F = params_from(params);
     cudaStream_t s = (cudaStream_t)stream;
-    if (ncoord == 1)
-        double_kernel<RingFq><<<blocks(n, THREADS), THREADS, 0, s>>>(x, y, z, ox, oy, oz, n, k, F);
-    else
-        double_kernel<RingFq2><<<blocks(n, THREADS), THREADS, 0, s>>>(x, y, z, ox, oy, oz, n, k, F);
-    return (int)cudaGetLastError();
+    if (nl == 8) return launch_montmul<8>(a, b, out, n, params, s);
+    if (nl == 12) return launch_montmul<12>(a, b, out, n, params, s);
+    return NOT_BUILT;
 }
 
-int zk_ring_mul(int ncoord, const int32_t* a, const int32_t* b, int32_t* out, long n,
+int zk_point_add(int nl, int nr, int ncoord, const int32_t* x1, const int32_t* y1,
+                 const int32_t* z1, const int32_t* x2, const int32_t* y2, const int32_t* z2,
+                 int32_t* ox, int32_t* oy, int32_t* oz, long n, const uint32_t* params,
+                 void* stream) {
+    const RingOps* R = ring_ops(nl, nr, ncoord);
+    return R ? R->add_if(x1, y1, z1, x2, y2, z2, nullptr, ox, oy, oz, n, params,
+                         (cudaStream_t)stream)
+             : NOT_BUILT;
+}
+
+int zk_point_add_if(int nl, int nr, int ncoord, const int32_t* x1, const int32_t* y1,
+                    const int32_t* z1, const int32_t* x2, const int32_t* y2,
+                    const int32_t* z2, const uint8_t* cond, int32_t* ox, int32_t* oy,
+                    int32_t* oz, long n, const uint32_t* params, void* stream) {
+    const RingOps* R = ring_ops(nl, nr, ncoord);
+    return R ? R->add_if(x1, y1, z1, x2, y2, z2, cond, ox, oy, oz, n, params,
+                         (cudaStream_t)stream)
+             : NOT_BUILT;
+}
+
+int zk_point_double(int nl, int nr, int ncoord, const int32_t* x, const int32_t* y,
+                    const int32_t* z, int32_t* ox, int32_t* oy, int32_t* oz, long n, int k,
+                    const uint32_t* params, void* stream) {
+    const RingOps* R = ring_ops(nl, nr, ncoord);
+    return R ? R->dbl(x, y, z, ox, oy, oz, n, k, params, (cudaStream_t)stream) : NOT_BUILT;
+}
+
+int zk_ring_mul(int nl, int nr, int ncoord, const int32_t* a, const int32_t* b,
+                int32_t* out, long n, const uint32_t* params, void* stream) {
+    const RingOps* R = ring_ops(nl, nr, ncoord);
+    return R ? R->ring_mul(a, b, out, n, params, (cudaStream_t)stream) : NOT_BUILT;
+}
+
+int zk_ring_inv(int nl, int nr, int ncoord, const int32_t* a, int32_t* out, long n,
                 const uint32_t* params, void* stream) {
-    FieldParams F = params_from(params);
-    cudaStream_t s = (cudaStream_t)stream;
-    if (ncoord == 1)
-        ring_mul_kernel<RingFq><<<blocks(n, THREADS), THREADS, 0, s>>>(a, b, out, n, F);
-    else
-        ring_mul_kernel<RingFq2><<<blocks(n, THREADS), THREADS, 0, s>>>(a, b, out, n, F);
-    return (int)cudaGetLastError();
+    const RingOps* R = ring_ops(nl, nr, ncoord);
+    return R ? R->ring_inv(a, out, n, params, (cudaStream_t)stream) : NOT_BUILT;
 }
 
-int zk_ring_inv(int ncoord, const int32_t* a, int32_t* out, long n, const uint32_t* params,
-                void* stream) {
-    FieldParams F = params_from(params);
-    cudaStream_t s = (cudaStream_t)stream;
-    if (ncoord == 1)
-        ring_inv_kernel<RingFq><<<blocks(n, THREADS), THREADS, 0, s>>>(a, out, n, F);
-    else
-        ring_inv_kernel<RingFq2><<<blocks(n, THREADS), THREADS, 0, s>>>(a, out, n, F);
-    return (int)cudaGetLastError();
+int zk_point_aadd(int nl, int nr, int ncoord, const int32_t* x1, const int32_t* y1,
+                  const int32_t* x2, const int32_t* y2, const uint8_t* inf1,
+                  const uint8_t* inf2, int32_t* ox, int32_t* oy, int32_t* oz, long n,
+                  const uint32_t* params, void* stream) {
+    const RingOps* R = ring_ops(nl, nr, ncoord);
+    return R ? R->aadd(x1, y1, x2, y2, inf1, inf2, ox, oy, oz, n, params,
+                       (cudaStream_t)stream)
+             : NOT_BUILT;
 }
 
-int zk_point_aadd(int ncoord, const int32_t* x1, const int32_t* y1, const int32_t* x2,
-                  const int32_t* y2, const uint8_t* inf1, const uint8_t* inf2, int32_t* ox,
-                  int32_t* oy, int32_t* oz, long n, const uint32_t* params, void* stream) {
-    FieldParams F = params_from(params);
-    cudaStream_t s = (cudaStream_t)stream;
-    if (ncoord == 1)
-        aadd_kernel<RingFq><<<blocks(n, THREADS), THREADS, 0, s>>>(x1, y1, x2, y2, inf1, inf2,
-                                                                   ox, oy, oz, n, F);
-    else
-        aadd_kernel<RingFq2><<<blocks(n, THREADS), THREADS, 0, s>>>(x1, y1, x2, y2, inf1, inf2,
-                                                                    ox, oy, oz, n, F);
-    return (int)cudaGetLastError();
-}
-
-int zk_point_madd_if(int ncoord, const int32_t* x1, const int32_t* y1, const int32_t* z1,
-                     const int32_t* x2, const int32_t* y2, const uint8_t* cond, int32_t* ox,
-                     int32_t* oy, int32_t* oz, long n, const uint32_t* params, void* stream) {
-    FieldParams F = params_from(params);
-    cudaStream_t s = (cudaStream_t)stream;
-    if (ncoord == 1)
-        madd_if_kernel<RingFq><<<blocks(n, THREADS), THREADS, 0, s>>>(x1, y1, z1, x2, y2, cond,
-                                                                      ox, oy, oz, n, F);
-    else
-        madd_if_kernel<RingFq2><<<blocks(n, THREADS), THREADS, 0, s>>>(x1, y1, z1, x2, y2, cond,
-                                                                       ox, oy, oz, n, F);
-    return (int)cudaGetLastError();
+int zk_point_madd_if(int nl, int nr, int ncoord, const int32_t* x1, const int32_t* y1,
+                     const int32_t* z1, const int32_t* x2, const int32_t* y2,
+                     const uint8_t* cond, int32_t* ox, int32_t* oy, int32_t* oz, long n,
+                     const uint32_t* params, void* stream) {
+    const RingOps* R = ring_ops(nl, nr, ncoord);
+    return R ? R->madd_if(x1, y1, z1, x2, y2, cond, ox, oy, oz, n, params,
+                          (cudaStream_t)stream)
+             : NOT_BUILT;
 }
 
 // Sorts each of the total / n rows of n keys (n a power of two) in place.

@@ -9,7 +9,8 @@ ops are elementwise over the leading batch dims.
 run the CUDA kernels for CUDA tensors and their plain versions for CPU
 tensors.  The scalar multiplications are host loops over those kernels;
 `msm` takes the bucket Pippenger of curves/pippenger.py for m >= 256.
-Only a = 0 curves (BN254 here) are supported.
+The curves are the a = 0 curves BN254, BLS12-381 and BLS12-377
+(`curve_g1`, `curve_g2`).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from ..fields.field import Field, field
-from ..fields.spec import BN254_FQ, BN254_FR, LIMB_BITS, fq2_nonresidue
+from ..fields.spec import FIELDS, LIMB_BITS, fq2_nonresidue
 from . import ref as _ref
 from .point_ops import point_add, point_add_if, point_double
 
@@ -64,14 +65,18 @@ class FqRing:
 
 
 class Fq2Ring:
-    """Coordinate ring Fq2 = Fq[u]/(u^2 - nr): elements are (..., 2, K)."""
+    """Coordinate ring Fq2 = Fq[u]/(u^2 - nr): elements are (..., 2, K).
+    nr = -1 for BN254 and BLS12-381, -5 for BLS12-377 (fields/spec.py)."""
 
     def __init__(self, F: Field):
         self.F = F
         self.coord_shape = (2, F.k)
         self.nr = fq2_nonresidue(F.spec)
-        if self.nr != -1:
-            raise NotImplementedError("only nr = -1 (BN254) is ported")
+        assert self.nr < 0
+
+    def _nr_t1(self, t1):
+        """(-nr) * t1 (nr is a small negative int), as jcurve.py:107-109."""
+        return t1 if self.nr == -1 else self.F.muli(t1, -self.nr)
 
     def mul(self, a, b):
         F = self.F
@@ -80,7 +85,7 @@ class Fq2Ring:
         t0 = F.mul(a0, b0)
         t1 = F.mul(a1, b1)
         t2 = F.mul(F.add(a0, a1), F.add(b0, b1))
-        return torch.stack([F.sub(t0, t1), F.sub(F.sub(t2, t0), t1)], dim=-2)
+        return torch.stack([F.sub(t0, self._nr_t1(t1)), F.sub(F.sub(t2, t0), t1)], dim=-2)
 
     def square(self, a):
         return self.mul(a, a)
@@ -104,7 +109,7 @@ class Fq2Ring:
     def batch_inv(self, a, axis=0):
         F = self.F
         a0, a1 = a[..., 0, :], a[..., 1, :]
-        norm = F.add(F.square(a0), F.square(a1))  # a0^2 - nr a1^2, nr = -1
+        norm = F.add(F.square(a0), self._nr_t1(F.square(a1)))  # a0^2 - nr a1^2
         ninv = F.batch_inv(norm, axis=axis)
         return torch.stack([F.mul(a0, ninv), F.neg(F.mul(a1, ninv))], dim=-2)
 
@@ -334,15 +339,24 @@ class JCurve:
         return self.sum(prods, axis=-1)
 
 
+CURVE_FAMILIES = ("bn254", "bls12_381", "bls12_377")
+
+
+def _family(name: str) -> str:
+    if name not in CURVE_FAMILIES:
+        raise ValueError(f"unknown curve {name!r}; the port has {CURVE_FAMILIES}")
+    return name
+
+
 @functools.cache
 def curve_g1(name: str = "bn254") -> JCurve:
-    if name == "bn254":
-        return JCurve("bn254_g1", FqRing(field(BN254_FQ)), _ref.BN254_G1, field(BN254_FR))
-    raise NotImplementedError(f"{name}: only BN254 is ported")
+    fam = _family(name)
+    return JCurve(f"{fam}_g1", FqRing(field(FIELDS[f"{fam}_fq"])), _ref.CURVES[f"{fam}_g1"],
+                  field(FIELDS[f"{fam}_fr"]))
 
 
 @functools.cache
 def curve_g2(name: str = "bn254") -> JCurve:
-    if name == "bn254":
-        return JCurve("bn254_g2", Fq2Ring(field(BN254_FQ)), _ref.BN254_G2, field(BN254_FR))
-    raise NotImplementedError(f"{name}: only BN254 is ported")
+    fam = _family(name)
+    return JCurve(f"{fam}_g2", Fq2Ring(field(FIELDS[f"{fam}_fq"])), _ref.CURVES[f"{fam}_g2"],
+                  field(FIELDS[f"{fam}_fr"]))

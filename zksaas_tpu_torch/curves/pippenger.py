@@ -23,7 +23,7 @@ axis of every tensor here, not a loop.  The JAX package's TPU workarounds
 (_deinter, the fixed-width scan of the deep levels, _DBL_CHUNK, vary(), the
 ZKSAAS_MSM_* variables and the VMEM bound MAX_VIRT) have no counterpart:
 every level runs at its true width, one double launch takes any k, and the
-slots of one pass are bounded by device memory (MAX_SLOTS).
+slots of one pass are bounded by device memory (MAX_SLOT_BYTES).
 """
 
 from __future__ import annotations
@@ -48,9 +48,11 @@ WINDOW = 8  # c, the JAX package's default
 # Packed keys (window | digit | slot) stay below 2^31, so the sorted keys
 # are non-negative int32 and torch.searchsorted orders them as unsigned.
 KEY_BITS = 31
-# Sorted slots (MSMs x windows x points) of one pass: about 6 GB of tree
-# levels in G2.  A larger MSM is cut into point chunks whose results add.
-MAX_SLOTS = 1 << 24
+# The tree levels of one pass hold about one Jacobian point per sorted slot
+# (MSMs x windows x points); they may take this many bytes: 2^24 slots of
+# BN254 G2 (384 B a point), 2^23 of BLS12 G2 (576 B).  A larger MSM is cut
+# into point chunks whose results add.
+MAX_SLOT_BYTES = 6 << 30
 ROOT = 1024  # widest ring_inv at the root of the inversion tree
 
 
@@ -141,8 +143,10 @@ def msm_pippenger(curve, P, scalars_mont):
     c = WINDOW
     n_windows = -(-curve.fr.spec.bits // c)
     wbits = (n_windows - 1).bit_length()
+    point_bytes = 3 * math.prod(curve.R.coord_shape) * 4
+    max_slots = MAX_SLOT_BYTES // point_bytes
     chunk = min(1 << (KEY_BITS - c - wbits),
-                1 << max(0, (MAX_SLOTS // (nb << wbits)).bit_length() - 1))
+                1 << max(0, (max_slots // (nb << wbits)).bit_length() - 1))
     if m > chunk:
         acc = None
         for i in range(0, m, chunk):

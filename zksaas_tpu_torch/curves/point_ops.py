@@ -5,8 +5,9 @@ Ports of zksaas_tpu/curves/fused.py::_add_call (fused_add), ::_add_select_call
 (fused_add_select), ::_double_call (fused_double), ::_fmul_call (pfmul),
 ::_finv_call (pfinv), ::_aadd_call (paddaa) and ::_madd_select_call
 (pmadd_if): a = 0 Jacobian formulas and coordinate-ring arithmetic over Fq
-(G1, (B, K) coordinates) or Fq2 (G2, (B, 2, K)), one thread per element in
-csrc/kernels.cu.  Each wrapper (`point_add`, `ring_mul`, ...) launches the
+(G1, (B, K) coordinates) or Fq2 = Fq[u]/(u^2 - nr) (G2, (B, 2, K)), one
+thread per element in csrc/kernels.cuh, for K = 16 (BN254) and K = 24
+(BLS12-381, BLS12-377; nr = -5 for BLS12-377's Fq2).  Each wrapper (`point_add`, `ring_mul`, ...) launches the
 CUDA kernel for CUDA tensors and takes the plain PyTorch version
 (`*_plain`) only for CPU tensors.
 
@@ -27,19 +28,32 @@ import torch
 from .. import kernels
 from ..fields.field import add64, sub64
 from ..fields.montmul import montmul_plain
+from ..fields.spec import fq2_nonresidue
 
 
 def _stack(ts):
     return torch.stack(torch.broadcast_tensors(*ts))
 
 
+def _neg_nr(spec, nr, x):
+    """-nr * x on int64 limbs: x itself for nr = -1, else 4x + x by
+    doublings, as the kernels compute it (fused.py's muli)."""
+    if nr == -1:
+        return x
+    assert nr == -5, nr
+    d = add64(spec, x, x)
+    return add64(spec, add64(spec, d, d), x)
+
+
 class _PlainRing:
-    """Fq (ncoord 1) or Fq2 = Fq[u]/(u^2 + 1) (ncoord 2) on int64 limbs,
-    with batched ops: each takes pairs and makes one call for all of them."""
+    """Fq (ncoord 1) or Fq2 = Fq[u]/(u^2 - nr) (ncoord 2, nr from
+    fields/spec.py::fq2_nonresidue) on int64 limbs, with batched ops: each
+    takes pairs and makes one call for all of them."""
 
     def __init__(self, spec, ncoord: int, device):
         self.spec = spec
         self.ncoord = ncoord
+        self.nr = fq2_nonresidue(spec)
         k = spec.nlimbs
         one = torch.tensor(
             [(spec.r_mod_p >> (16 * i)) & 0xFFFF for i in range(k)],
@@ -61,11 +75,12 @@ class _PlainRing:
         a, b = _stack([a for a, _ in pairs]), _stack([b for _, b in pairs])
         if self.ncoord == 1:
             return montmul_plain(self.spec, a, b).unbind(0)
-        # Karatsuba, nr = -1: (t0 - t1, (a0 + a1)(b0 + b1) - t0 - t1)
+        # Karatsuba: (t0 + nr t1, (a0 + a1)(b0 + b1) - t0 - t1)
         a0, a1, b0, b1 = a[..., 0, :], a[..., 1, :], b[..., 0, :], b[..., 1, :]
         s = add64(self.spec, torch.stack([a0, b0]), torch.stack([a1, b1]))
         t = montmul_plain(self.spec, torch.stack([a0, a1, s[0]]), torch.stack([b0, b1, s[1]]))
-        u = sub64(self.spec, torch.stack([t[0], t[2]]), torch.stack([t[1], t[0]]))
+        u = sub64(self.spec, torch.stack([t[0], t[2]]),
+                  torch.stack([_neg_nr(self.spec, self.nr, t[1]), t[0]]))
         c1 = sub64(self.spec, u[1], t[1])
         return torch.stack([u[0], c1], dim=-2).unbind(0)
 
@@ -198,7 +213,8 @@ def ring_inv_plain(spec, ncoord, a):
         return _inv64(spec, a).int()
     c = a.movedim(-2, 0)  # (c0, c1)
     sq = montmul_plain(spec, c, c)
-    ninv = _inv64(spec, add64(spec, sq[0], sq[1]))  # the norm c0^2 + c1^2, nr = -1
+    # the norm c0^2 - nr c1^2
+    ninv = _inv64(spec, add64(spec, sq[0], _neg_nr(spec, fq2_nonresidue(spec), sq[1])))
     r = montmul_plain(spec, c, ninv)
     return torch.stack([r[0], sub64(spec, torch.zeros_like(r[1]), r[1])], dim=-2).int()
 
@@ -283,11 +299,12 @@ def point_add(spec, ncoord: int, P, Q):
         return point_add_plain(spec, ncoord, P, Q)
     out = _outs(P[0])
     if B:
+        nl, nr, prm = kernels.field_args(spec)
         rc = kernels.cuda_lib().zk_point_add(
-            ncoord, *(c.data_ptr() for c in (*P, *Q, *out)), B,
-            kernels.field_params(spec).ctypes.data, kernels.stream_of(P[0]),
+            nl, nr, ncoord, *(c.data_ptr() for c in (*P, *Q, *out)), B, prm,
+            kernels.stream_of(P[0]),
         )
-        kernels.check(kernels.POINT_ADD, rc)
+        kernels.check(kernels.POINT_ADD, rc, spec)
     return out
 
 
@@ -298,12 +315,12 @@ def point_add_if(spec, ncoord: int, P, Q, cond):
         return point_add_if_plain(spec, ncoord, P, Q, cond)
     out = _outs(P[0])
     if B:
+        nl, nr, prm = kernels.field_args(spec)
         rc = kernels.cuda_lib().zk_point_add_if(
-            ncoord, *(c.data_ptr() for c in (*P, *Q)), cond.data_ptr(),
-            *(c.data_ptr() for c in out), B,
-            kernels.field_params(spec).ctypes.data, kernels.stream_of(P[0]),
+            nl, nr, ncoord, *(c.data_ptr() for c in (*P, *Q, cond, *out)), B, prm,
+            kernels.stream_of(P[0]),
         )
-        kernels.check(kernels.POINT_ADD_IF, rc)
+        kernels.check(kernels.POINT_ADD_IF, rc, spec)
     return out
 
 
@@ -316,11 +333,12 @@ def point_double(spec, ncoord: int, P, k: int = 1):
         return point_double_plain(spec, ncoord, P, k)
     out = _outs(P[0])
     if B:
+        nl, nr, prm = kernels.field_args(spec)
         rc = kernels.cuda_lib().zk_point_double(
-            ncoord, *(c.data_ptr() for c in (*P, *out)), B, k,
-            kernels.field_params(spec).ctypes.data, kernels.stream_of(P[0]),
+            nl, nr, ncoord, *(c.data_ptr() for c in (*P, *out)), B, k, prm,
+            kernels.stream_of(P[0]),
         )
-        kernels.check(kernels.POINT_DOUBLE, rc)
+        kernels.check(kernels.POINT_DOUBLE, rc, spec)
     return out
 
 
@@ -331,11 +349,12 @@ def ring_mul(spec, ncoord: int, a, b):
         return ring_mul_plain(spec, ncoord, a, b)
     out = torch.empty_like(a)
     if B:
+        nl, nr, prm = kernels.field_args(spec)
         rc = kernels.cuda_lib().zk_ring_mul(
-            ncoord, a.data_ptr(), b.data_ptr(), out.data_ptr(), B,
-            kernels.field_params(spec).ctypes.data, kernels.stream_of(a),
+            nl, nr, ncoord, a.data_ptr(), b.data_ptr(), out.data_ptr(), B, prm,
+            kernels.stream_of(a),
         )
-        kernels.check(kernels.RING_MUL, rc)
+        kernels.check(kernels.RING_MUL, rc, spec)
     return out
 
 
@@ -346,11 +365,11 @@ def ring_inv(spec, ncoord: int, a):
         return ring_inv_plain(spec, ncoord, a)
     out = torch.empty_like(a)
     if B:
+        nl, nr, prm = kernels.field_args(spec)
         rc = kernels.cuda_lib().zk_ring_inv(
-            ncoord, a.data_ptr(), out.data_ptr(), B,
-            kernels.field_params(spec).ctypes.data, kernels.stream_of(a),
+            nl, nr, ncoord, a.data_ptr(), out.data_ptr(), B, prm, kernels.stream_of(a),
         )
-        kernels.check(kernels.RING_INV, rc)
+        kernels.check(kernels.RING_INV, rc, spec)
     return out
 
 
@@ -362,11 +381,12 @@ def point_aadd(spec, ncoord: int, P, Q, inf1, inf2):
         return point_aadd_plain(spec, ncoord, P, Q, inf1, inf2)
     out = _outs(P[0])
     if B:
+        nl, nr, prm = kernels.field_args(spec)
         rc = kernels.cuda_lib().zk_point_aadd(
-            ncoord, *(c.data_ptr() for c in (*P, *Q, inf1, inf2, *out)), B,
-            kernels.field_params(spec).ctypes.data, kernels.stream_of(P[0]),
+            nl, nr, ncoord, *(c.data_ptr() for c in (*P, *Q, inf1, inf2, *out)), B, prm,
+            kernels.stream_of(P[0]),
         )
-        kernels.check(kernels.POINT_AADD, rc)
+        kernels.check(kernels.POINT_AADD, rc, spec)
     return out
 
 
@@ -378,9 +398,10 @@ def point_madd_if(spec, ncoord: int, P, Q, cond):
         return point_madd_if_plain(spec, ncoord, P, Q, cond)
     out = _outs(P[0])
     if B:
+        nl, nr, prm = kernels.field_args(spec)
         rc = kernels.cuda_lib().zk_point_madd_if(
-            ncoord, *(c.data_ptr() for c in (*P, *Q, cond, *out)), B,
-            kernels.field_params(spec).ctypes.data, kernels.stream_of(P[0]),
+            nl, nr, ncoord, *(c.data_ptr() for c in (*P, *Q, cond, *out)), B, prm,
+            kernels.stream_of(P[0]),
         )
-        kernels.check(kernels.POINT_MADD_IF, rc)
+        kernels.check(kernels.POINT_MADD_IF, rc, spec)
     return out

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .limbs import M16, normalize, sub_multiples
+from .limbs import M16, normalize
 from .montmul import _consts, montmul
 from .spec import LIMB_BITS, LIMB_MASK, FieldSpec
 
@@ -60,13 +60,6 @@ def sub64(spec, a, b):
     _, off_sub = _offsets(spec, a.device)
     x, top = normalize((a - b).unsqueeze(-2) + off_sub)
     return torch.where(top[..., :1] > 0, x[..., 0, :], x[..., 1, :])
-
-
-def reduce_raw64(spec, a):
-    """Reduce raw limbs (< R) to the canonical residue."""
-    k = spec.nlimbs
-    r = torch.nn.functional.pad(a, (0, 2))
-    return sub_multiples(r, spec.p, k, spec.R // spec.p + 1)
 
 
 class Field:
@@ -259,8 +252,10 @@ class Field:
 
     def rand(self, gen: torch.Generator, shape=(), device="cuda"):
         """Uniform field elements in Montgomery form: 2K random 16-bit limbs
-        (twice the modulus width), reduced as jfield.py:388-403 does, so the
-        mod-p bias is ~2^-256.  `gen` is a CPU generator."""
+        (twice the modulus width) reduced to hi R + lo mod p, as
+        jfield.py:388-403 does, so the mod-p bias is ~2^-256.  Both halves
+        are Montgomery products (hi R^2 R^-1 and lo (R mod p) R^-1), exact
+        for a raw operand below R.  `gen` is a CPU generator."""
         dev = resolve_device(device)
         shape = tuple(shape)
         raw = torch.randint(0, 1 << 16, shape + (2 * self.k,), generator=gen,
@@ -269,7 +264,7 @@ class Field:
         r2 = torch.tensor(_int_to_limbs(self.spec.r2_mod_p, self.k), dtype=torch.int32,
                           device=dev)
         hi_red = self.mul(hi, r2)  # hi * R mod p
-        lo_red = reduce_raw64(self.spec, lo.long()).int()
+        lo_red = self.mul(lo, self.ones(device=dev))  # lo mod p
         return self.add(hi_red, lo_red)
 
 

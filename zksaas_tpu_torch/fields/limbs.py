@@ -64,7 +64,8 @@ def _resolve(x):
 # From this many limbs on, a sequential carry with the limbs as rows is the
 # cheaper normalization on the CPU (4x at 2^20 limbs): its passes are
 # O(K) small calls, where _resolve's shifted maxima move the whole tensor
-# several times.
+# several times.  Counted in limbs, so it switches at 4,096 elements of 16
+# limbs and 2,731 of 24: both costs grow with the limbs per element alike.
 _SEQ_MIN = 1 << 16
 
 
@@ -110,14 +111,6 @@ def split_columns(x, npieces: int):
     """Columns < 2^(16 npieces) -> npieces-1 more columns of the same value,
     each < npieces 2^16: column j's 16-bit piece s is added at j + s."""
     return _skew_sum((x.unsqueeze(-2) >> _shifts(npieces, x.device)) & M16)
-
-
-def conv(a, b):
-    """Schoolbook product columns: out[..., c] = sum_{i+j=c} a_i b_j for
-    c < 2K (column 2K-1 is 0).  Limbs < 2^m give columns < K 2^(2m)."""
-    a, b = torch.broadcast_tensors(a, b)
-    pp = a.unsqueeze(-1) * b.unsqueeze(-2)  # (..., k, k), row i = a_i b
-    return torch.nn.functional.pad(_skew_sum(pp), (0, 1))
 
 
 @functools.cache

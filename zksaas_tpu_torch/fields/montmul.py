@@ -5,7 +5,8 @@ TPU path of Field.mul.  `montmul` launches the CUDA kernel
 (csrc/kernels.cu::zk_montmul) for CUDA tensors and takes the plain PyTorch
 version `montmul_plain` only for CPU tensors.
 
-Layout: (..., K) int32 tensors of 16-bit limbs, Montgomery form, R = 2^(16K).
+Layout: (..., K) int32 tensors of 16-bit limbs, Montgomery form, R = 2^(16K):
+K = 16 for BN254's Fq and every Fr, 24 for the BLS12 base fields.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import functools
 import torch
 
 from .. import kernels
-from .limbs import M16, conv, normalize, split_columns, sub_multiples
+from .limbs import M16, normalize, split_columns, sub_multiples
 
 
 @functools.cache
@@ -30,17 +31,19 @@ def _consts(spec, device):
 
 
 # From this many elements on, the limb-major REDC below is the cheaper
-# plain version on the CPU (16x at 8192 elements); below it, its ~230 small
-# torch calls cost more than the few large ones of the separated form.
-_REDC_MIN = 256
+# plain version on the CPU (3-7x at 4,096 elements); below it, its ~230
+# small torch calls cost more than the few large ones of the separated form.
+_REDC_MIN = 512
 
 
 def _montmul_redc(spec, a, b):
     """Word-by-word Montgomery reduction with the limbs as rows, (K, n):
     columns of a b, one 16-bit quotient per row, carries, and one
-    conditional subtraction of p (the result is < 2p).  The columns stay
-    below 2^38, so they are exact in float64, whose vector multiply-add the
-    CPU runs several times faster than int64's."""
+    conditional subtraction of p (the result is < 2p).  A column sums at
+    most K products a_i b_j and K products q p_j, each < 2^32, and a carry
+    < 2^22: below 2^38 at K = 24 (2^37.6) as at K = 16 (2^37), so it is
+    exact in float64 (53 bits), whose vector multiply-add the CPU runs
+    several times faster than int64's."""
     k = spec.nlimbs
     shape = a.shape
     A = a.reshape(-1, k).t().double().contiguous()
@@ -67,23 +70,55 @@ def _montmul_redc(spec, a, b):
     return torch.where(below_p, r[:k], d).t().contiguous().reshape(shape)
 
 
+@functools.cache
+def _mats(spec, device):
+    """Constant float64 matrices of the small-batch plain version: Ck sums
+    the products a_i b_j into their columns i + j; TNP and TP are the
+    Toeplitz matrices of N' (low K columns) and p, so x @ TNP and x @ TP
+    are the product columns of x N' and x p; w weighs column c by
+    2^(16 (c - K))."""
+    k = spec.nlimbs
+    P, NP, _ = (c.double() for c in _consts(spec, device))
+    i = torch.arange(k, device=device)
+    Ck = torch.zeros(k * k, 2 * k - 1, dtype=torch.float64, device=device)
+    Ck[torch.arange(k * k, device=device), (i.view(-1, 1) + i.view(1, -1)).reshape(-1)] = 1.0
+    d = i.view(1, -1) - i.view(-1, 1)
+    TNP = torch.where(d >= 0, NP[d.clamp(min=0)], 0.0)
+    d = torch.arange(2 * k - 1, device=device).view(1, -1) - i.view(-1, 1)
+    TP = torch.where((d >= 0) & (d < k), P[d.clamp(0, k - 1)], 0.0)
+    w = 2.0 ** (16 * (i - k).double())
+    return Ck, TNP, TP, w
+
+
+def _fmm(x, M):
+    """x @ M for int64 x whose products' column sums stay below 2^53, so
+    float64 is exact (and CUDA has no int64 matrix product)."""
+    return (x.double() @ M).long()
+
+
 def montmul_plain(spec, a, b):
     """Plain version on int64 limb tensors (broadcasting).  Needs a b < R p
     (canonical operands, or one raw operand < R times a canonical one).
     Large batches take the limb-major REDC above.  Small ones take a
-    separated Montgomery reduction T = a b, m = T N' mod R, (T + m p) / R
-    in few calls: m is kept redundant (16-bit pieces summed, < 4R), so
-    (T + m p) / R < 5p and the last step picks the residue among r - j p,
-    j < 5."""
+    separated Montgomery reduction in few calls, with float64 matrix
+    products against constants, each exact (sums below 2^40): the product
+    columns T of a b (< K 2^32); m = T N' mod R from T's low half in 16-bit
+    pieces, kept redundant (< 3R); S = T + m p (= 0 mod R); the carry out
+    of S's low K columns, an integer < 2^25 that float64 sums within
+    2^-24, so U = S / R < (R p + 3R p) / R + p = 5p; the last step picks
+    the residue among U - j p, j < 5."""
     a, b = torch.broadcast_tensors(a, b)
     if a.numel() >= _REDC_MIN * spec.nlimbs:
         return _montmul_redc(spec, a, b)
-    P, NP, _ = _consts(spec, a.device)
     k = spec.nlimbs
-    T = conv(a, b)  # 2K columns < K 2^32
-    m = split_columns(conv(T[..., :k], NP)[..., :k], 4)[..., :k]  # = T N' mod R, < 4 2^16
-    S, _ = normalize(split_columns(T + conv(m, P), 3))  # = 0 mod R, S / R < 5p
-    return sub_multiples(S[..., k : 2 * k + 2], spec.p, k, 5)
+    Ck, TNP, TP, w = _mats(spec, a.device)
+    T = _fmm((a.unsqueeze(-1) * b.unsqueeze(-2)).flatten(-2), Ck)
+    m = split_columns(_fmm(split_columns(T[..., :k], 3)[..., :k], TNP), 3)[..., :k]
+    S = T + _fmm(m, TP)
+    U = S[..., k:].clone()
+    U[..., 0] += torch.round(S[..., :k].double() @ w).long()
+    Un, _ = normalize(split_columns(U, 3))
+    return sub_multiples(torch.nn.functional.pad(Un, (0, 1)), spec.p, k, 5)
 
 
 def _check(a, b):
@@ -108,13 +143,9 @@ def montmul(spec, a, b):
     n = a.numel() // spec.nlimbs
     if n == 0:
         return out
-    L = kernels.cuda_lib()
-    prm = kernels.field_params(spec)
-    kernels.check(
-        kernels.MONTMUL,
-        L.zk_montmul(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
-            prm.ctypes.data, kernels.stream_of(a),
-        ),
+    nl, _, prm = kernels.field_args(spec)
+    rc = kernels.cuda_lib().zk_montmul(
+        nl, a.data_ptr(), b.data_ptr(), out.data_ptr(), n, prm, kernels.stream_of(a)
     )
+    kernels.check(kernels.MONTMUL, rc, spec)
     return out

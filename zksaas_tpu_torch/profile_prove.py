@@ -1,21 +1,24 @@
 """Where the flagship prove's time goes on the card.
 
-  python -m zksaas_tpu_torch.profile_prove
+  python -m zksaas_tpu_torch.profile_prove [--curve bn254|bls12_381|bls12_377]
 
-Sets up the flagship as sha256_e2e does, runs one warm-up prove, one timed
+Sets up the flagship as sha256_e2e does (over BN254 unless --curve names
+another curve), runs one warm-up prove, one timed
 prove, then one prove under torch.profiler (device activity only), and
 prints one JSON line: both proves' wall seconds (device-synchronised), the
 device-busy seconds (the union of all kernel intervals in the trace), the
 device's idle share over the profiled prove, device seconds
 and launches per kernel name, and the launches of the port's own kernels
-by their counters.  It also compiles csrc/kernels.cu once more with
-`-Xptxas -v` and reports each kernel's registers and spill bytes.  The
+by their counters.  It also compiles every CUDA source once more with
+`-Xptxas -v` (all at once) and reports each kernel's registers and spill
+bytes.  The
 Chrome trace is written to the git-ignored build directory.  Needs a CUDA
 device.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import re
@@ -25,6 +28,7 @@ import time
 import torch
 
 from . import kernels
+from .curves.curve import CURVE_FAMILIES
 from .device import resolve_device
 from .groth16.prove import d_prove
 from .sha256_e2e import setup
@@ -70,36 +74,50 @@ def _kernel_table(trace_path: str) -> dict:
     }
 
 
+def _kernel_label(mangled: str) -> str:
+    """add_kernel<Fq2[12, nr -5]> and the like, from a mangled kernel name."""
+    base = re.search(
+        r"(montmul|ring_mul|ring_inv|aadd|madd_if|add|double|sort_tile|sort_step)_kernel",
+        mangled).group(0)
+    m = re.search(r"RingFq(2?)ILi(\d+)E(?:Li(\d+)E)?", mangled)
+    if m:
+        return (f"{base}<Fq2[{m.group(2)}, nr -{m.group(3)}]>" if m.group(1)
+                else f"{base}<Fq[{m.group(2)}]>")
+    m = re.search(r"montmul_kernelILi(\d+)E", mangled)
+    return f"{base}<{m.group(1)}>" if m else base
+
+
 def _ptxas() -> list:
     """Registers and spill bytes of each kernel, from nvcc -Xptxas -v."""
-    src = os.path.join(kernels.CSRC, "kernels.cu")
-    flags = [f for f in kernels.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    out = os.path.join(kernels.BUILD, "ptxas_check.cubin")
-    res = subprocess.run([kernels.nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o", out, src],
-                         capture_output=True, text=True, timeout=900, check=True)
+    flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    os.makedirs(kernels.BUILD, exist_ok=True)
+    procs = []
+    for src in kernels.cuda_sources():
+        out = os.path.join(kernels.BUILD, os.path.basename(src) + ".ptxas_check.cubin")
+        procs.append(subprocess.Popen(
+            [kernels.nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o", out, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     rows = []
-    for line in res.stderr.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            mangled = m.group(1)
-            base = re.search(
-                r"(montmul|ring_mul|ring_inv|aadd|madd_if|add|double|sort_tile|sort_step)_kernel",
-                mangled).group(0)
-            ring = "Fq2" if "RingFq2" in mangled else "Fq" if "RingFq" in mangled else None
-            name = f"{base}<{ring}>" if ring else base
-            rows.append({"kernel": name})
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and rows:
-            rows[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and rows:
-            rows[-1]["registers"] = int(m.group(1))
+    for p in procs:
+        _, err = p.communicate(timeout=900)
+        if p.returncode != 0:
+            raise RuntimeError(err[-4000:])
+        for line in err.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                rows.append({"kernel": _kernel_label(m.group(1))})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and rows:
+                rows[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and rows:
+                rows[-1]["registers"] = int(m.group(1))
     return rows
 
 
-def main() -> dict:
+def main(curve: str = "bn254") -> dict:
     dev = resolve_device("cuda")
-    _r1cs, _z, _vk, args = setup(1, 2, dev, {})
+    _r1cs, _z, _vk, args = setup(1, 2, dev, {}, curve)
     d_prove(*args, generator(10))  # warm-up: tables, caches, the kernel build
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -114,21 +132,26 @@ def main() -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels.KERNELS}
+    by_field = {k.name: dict(k.by_field) for k in kernels.KERNELS}
     os.makedirs(kernels.BUILD, exist_ok=True)
-    trace = os.path.join(kernels.BUILD, "prove_trace.json")
+    trace = os.path.join(kernels.BUILD, f"prove_trace_{curve}.json")
     prof.export_chrome_trace(trace)
     table = _kernel_table(trace)
     return {
+        "curve": curve,
         "device": torch.cuda.get_device_name(dev),
         "prove_wall_s": wall,
         "prove_wall_unprofiled_s": wall_unprofiled,
         **table,
         "device_idle_share": 1.0 - table["device_busy_s"] / wall,
         "port_kernel_launches": launches,
+        "port_kernel_launches_by_field": by_field,
         "ptxas": _ptxas(),
         "trace": trace,
     }
 
 
 if __name__ == "__main__":
-    print(json.dumps(main()))
+    ap = argparse.ArgumentParser(description="device time of one flagship prove")
+    ap.add_argument("--curve", default="bn254", choices=CURVE_FAMILIES)
+    print(json.dumps(main(ap.parse_args().curve)))

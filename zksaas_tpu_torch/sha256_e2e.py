@@ -6,17 +6,19 @@ scalars and the verifying key on the host, generate and det-pack the CRS
 on the device (fixed-base muls), pack the QAP, witness and masks.
 Parties: the full d_prove protocol (3 d_ifft + 3 d_fft batched into one
 round each, deg_red, 5 d_msm) with all 8 parties simulated on one device
-over LocalNet.  Verification: unpack2 of the proof shares and the BN254
-pairing check on the host.
+over LocalNet.  Verification: unpack2 of the proof shares on the device,
+then the curve's pairing check on the host (pure Python, its own phase).
 
-Usage: python -m zksaas_tpu_torch.sha256_e2e [a] [b]
-Runs on the CUDA device (there is no CPU fallback) and prints one JSON
-line with the timed prove's latency, the phase times and each kernel's
-launches during that prove.
+Usage: python -m zksaas_tpu_torch.sha256_e2e [a] [b] [--curve bn254|bls12_381|bls12_377]
+The curve (BN254 by default) sets the circuit's scalar field and the
+groups.  Runs on the CUDA device (there is no CPU fallback) and prints one
+JSON line with the curve, the timed prove's latency, the phase times and
+each kernel's launches during that prove, in all and per field.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import random
 import sys
@@ -27,9 +29,9 @@ import torch
 from . import kernels
 from .circom.sha256 import sha256_two_inputs
 from .comm.net import LocalNet
-from .curves.curve import curve_g1, curve_g2
+from .curves.curve import CURVE_FAMILIES, curve_g1, curve_g2
 from .device import resolve_device
-from .fields.spec import BN254_FR
+from .fields.spec import FIELDS
 from .groth16.local import Proof, verify
 from .groth16.prove import ProveMasks, d_prove, pack_scalar_repeated, pack_witness
 from .groth16.qap import qap_pack
@@ -39,19 +41,20 @@ from .utils.rng import generator, split
 from .utils.trace import span
 
 
-def setup(a_in: int, b_in: int, dev, times: dict):
-    """Everything before the prove: the circuit, the CRS scalars and vk on
-    the host, the CRS shares on the device, and the dealer's packed QAP,
-    witness, r/s and masks.  Returns (r1cs, z, vk, args), where
-    d_prove(*args, rng) runs the distributed prove."""
+def setup(a_in: int, b_in: int, dev, times: dict, curve: str = "bn254"):
+    """Everything before the prove: the circuit over the curve's scalar
+    field, the CRS scalars and vk on the host, the CRS shares on the
+    device, and the dealer's packed QAP, witness, r/s and masks.  Returns
+    (r1cs, z, vk, args), where d_prove(*args, rng) runs the distributed
+    prove."""
+    g1, g2 = curve_g1(curve), curve_g2(curve)
     with span("circuit", times):
-        r1cs, z, _digest = sha256_two_inputs(a_in, b_in)
+        r1cs, z, _digest = sha256_two_inputs(a_in, b_in, FIELDS[f"{curve}_fr"])
     rng = random.Random(2024)
     with span("setup_scalars", times):
         ss = setup_scalars(r1cs, rng, reduction="circom")
         vk = vk_from_scalars(ss)
-    pp = pss(BN254_FR, 2)
-    g1, g2 = curve_g1(), curve_g2()
+    pp = pss(r1cs.spec, 2)
     with span("device_crs", times):
         crs = pack_proving_key_device(ss, vk, pp, g1, g2, dev)
     ks = split(generator(9), 7)
@@ -69,24 +72,28 @@ def setup(a_in: int, b_in: int, dev, times: dict):
     return r1cs, z, vk, args
 
 
-def main(a_in: int = 1, b_in: int = 2, device="cuda") -> dict:
+def main(a_in: int = 1, b_in: int = 2, device="cuda", curve: str = "bn254") -> dict:
     dev = resolve_device(device)
     times: dict = {}
     t_all = time.perf_counter()
-    r1cs, z, vk, args = setup(a_in, b_in, dev, times)
+    r1cs, z, vk, args = setup(a_in, b_in, dev, times, curve)
     pp, g1, g2, qap_share, net = args[0], args[1], args[2], args[4], args[-1]
     with span("prove_warmup", times):  # first calls build tables and caches
         d_prove(*args, generator(10))
-    before = [k.launches for k in kernels.KERNELS]
+    before = kernels.save_launches()
     rounds_before = net.rounds
     prove_phases: dict = {}
     with span("prove", times):
         pi = d_prove(*args, generator(10), times=prove_phases)
-    launches = {k.name: k.launches - b for k, b in zip(kernels.KERNELS, before)}
-    with span("verify", times):
+    launches = {k.name: k.launches - b[0] for k, b in zip(kernels.KERNELS, before)}
+    by_field = {k.name: {f: n - b[1].get(f, 0) for f, n in k.by_field.items()
+                         if n - b[1].get(f, 0)}
+                for k, b in zip(kernels.KERNELS, before)}
+    with span("unpack2", times):
         a = g1.decode(tuple(c[:1] for c in pp.unpack2_g(g1, pi[0])))[0]
         b = g2.decode(tuple(c[:1] for c in pp.unpack2_g(g2, pi[1])))[0]
         c = g1.decode(tuple(c[:1] for c in pp.unpack2_g(g1, pi[2])))[0]
+    with span("verify", times):  # the pairing check, pure Python on the host
         ok = verify(vk, z[1 : r1cs.num_instance], Proof(a=a, b=b, c=c))
     return {
         "metric": "sha256_distributed_prove_latency_s",
@@ -94,12 +101,14 @@ def main(a_in: int = 1, b_in: int = 2, device="cuda") -> dict:
         "unit": "s",
         "verified": bool(ok),
         "detail": {
+            "curve": curve,
             "constraints": r1cs.num_constraints,
             "domain": qap_share.dom.n,
             "parties": pp.n,
             "phases_s": times,
             "prove_phases_s": prove_phases,
             "launches": launches,
+            "launches_by_field": by_field,
             "rounds": net.rounds - rounds_before,
             "total_wall_s": time.perf_counter() - t_all,
             "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
@@ -108,8 +117,12 @@ def main(a_in: int = 1, b_in: int = 2, device="cuda") -> dict:
 
 
 if __name__ == "__main__":
-    vals = [int(x) for x in sys.argv[1:3]]
-    res = main(*(vals if len(vals) == 2 else (1, 2)))
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("a", nargs="?", type=int, default=1)
+    ap.add_argument("b", nargs="?", type=int, default=2)
+    ap.add_argument("--curve", default="bn254", choices=CURVE_FAMILIES)
+    opt = ap.parse_args()
+    res = main(opt.a, opt.b, curve=opt.curve)
     print(json.dumps(res))
     if not res["verified"]:
         sys.exit("distributed SHA-256 proof failed verification")
