@@ -9,7 +9,12 @@
    (tolerance: exact equality), timing both, and torch.sort beside the
    key sort as its library yardstick: every field instance of every
    kernel, BN254 (16 16-bit limbs), BLS12-381 and BLS12-377 (24 limbs,
-   Fq2 nr = -5 for BLS12-377), G1 and G2;
+   Fq2 nr = -5 for BLS12-377), G1 and G2; the add, add-if and double also
+   at 16 points, the batch of the prove's binary scalar muls, timed as
+   device time in a CUDA graph beside the empty kernel's (the launch
+   floor); the key sort also at 8 x 2^19 keys and on edge cases (one row
+   of 256 keys, rows shorter than a tile, all keys equal, all with bit 31
+   set, a constant high byte);
 4. runs the bucket-Pippenger MSM (curves/pippenger.py::msm_best) on the
    card for one party's 2^15 BN254 G1 points and holds its affine result
    against scalar_mul_w4 + sum on the same card;
@@ -37,6 +42,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import torch  # noqa: E402
+
+from zksaas_tpu_torch.kernel_ab import graph_ms, launch_floor_ms  # noqa: E402
 
 # H100 SXM memory rate (NVIDIA data sheet).  The operations peak is set in
 # main() from the card: SMs x 64 32-bit integer multiplies (or compares)
@@ -154,7 +161,10 @@ def test_points(curve, n, gen, dev="cuda"):
     return P, Q, cond, dict(pin=pin, qin=qin, same=same, neg=neg)
 
 
-def check_points(curve, n, gen):
+def check_points(curve, n, gen, small=False):
+    """The add, add-if and double(k) over n points with every special case;
+    small: the main path's batch, timed as device time in a CUDA graph, and
+    the double at k = 1 only."""
     from zksaas_tpu_torch import kernels
     from zksaas_tpu_torch.curves import point_ops as po
 
@@ -171,7 +181,8 @@ def check_points(curve, n, gen):
                 + int(neg_lanes.sum()) * 8)
     saved = kernels.save_launches()
     rows = []
-    tag = f"{curve.name} n=2^{n.bit_length() - 1}"
+    tag = f"{curve.name} n={n}" if small else f"{curve.name} n=2^{n.bit_length() - 1}"
+    timed = graph_ms if small else (lambda fn: cuda_ms(fn, 10))
 
     out = po.point_add(spec, nc, P, Q)
     ref = po.point_add_plain(spec, nc, P, Q)
@@ -179,7 +190,7 @@ def check_points(curve, n, gen):
     bms, by = bound(9 * nbytes_coord, add_muls * ring_muls * opm)
     rows.append(("point_add", dict(
         case=tag, field=spec.name, max_abs_err=max_err(out, ref),
-        ms=cuda_ms(lambda: po.point_add(spec, nc, P, Q), 10),
+        ms=timed(lambda: po.point_add(spec, nc, P, Q)),
         plain_ms=cuda_ms(lambda: po.point_add_plain(spec, nc, P, Q), 1),
         bound_ms=bms, bound_by=by)))
 
@@ -191,18 +202,18 @@ def check_points(curve, n, gen):
                     add_muls * frac * ring_muls * opm)
     rows.append(("point_add_if", dict(
         case=tag, field=spec.name, max_abs_err=max_err(out, ref),
-        ms=cuda_ms(lambda: po.point_add_if(spec, nc, P, Q, cond), 10),
+        ms=timed(lambda: po.point_add_if(spec, nc, P, Q, cond)),
         plain_ms=cuda_ms(lambda: po.point_add_if_plain(spec, nc, P, Q, cond), 1),
         bound_ms=bms, bound_by=by)))
 
-    for k in (1, 4):
+    for k in (1,) if small else (1, 4):
         out = po.point_double(spec, nc, P, k)
         ref = po.point_double_plain(spec, nc, P, k)
         torch.cuda.synchronize()
         bms, by = bound(6 * nbytes_coord, n * k * MULS_DOUBLE * ring_muls * opm)
         rows.append(("point_double", dict(
             case=f"{tag} k={k}", field=spec.name, max_abs_err=max_err(out, ref),
-            ms=cuda_ms(lambda: po.point_double(spec, nc, P, k), 10),
+            ms=timed(lambda: po.point_double(spec, nc, P, k)),
             plain_ms=cuda_ms(lambda: po.point_double_plain(spec, nc, P, k), 1),
             bound_ms=bms, bound_by=by)))
     kernels.restore_launches(saved)  # comparison launches do not count
@@ -317,10 +328,27 @@ def check_affine_adds(curve, n_aadd, n_madd, gen):
     return rows
 
 
-def check_sort(rows_, n, gen):
+def sort_edge_cases(gen):
+    """Key rows that take the sort's other branches: one row of 256 keys,
+    rows shorter than a tile, and rows of several tiles with all keys equal,
+    all with bit 31 set, or one high byte (a digit pass that copies)."""
+    rand = lambda r, n: torch.randint(-(1 << 31), 1 << 31, (r, n), generator=gen,
+                                      dtype=torch.int64).int()
+    high = (rand(4, 1 << 16) & 0xFFFFFF) | (0x5A << 24)
+    return {
+        "one row of 256": rand(1, 256),
+        "8 rows of 2048": rand(8, 2048),
+        "all equal": torch.full((4, 1 << 16), -12345, dtype=torch.int32),
+        "bit 31 set": rand(4, 1 << 16) | -(1 << 31),
+        "constant high byte": high.int(),
+    }
+
+
+def check_sort(rows_, n, gen, edge=False):
     """sort_u32 over rows_ rows of n random keys, half with bit 31 set, and
     torch.sort of the same keys (widened to int64, as the plain version
-    does) as the library yardstick."""
+    does) as the library yardstick; edge: also the edge cases, bit for bit.
+    The bound is the bytes: each key read and written once."""
     from zksaas_tpu_torch import kernels
     from zksaas_tpu_torch.fields.sortperm import sort_u32, sort_u32_plain
 
@@ -330,15 +358,24 @@ def check_sort(rows_, n, gen):
     out, ref = sort_u32(keys), sort_u32_plain(keys)
     torch.cuda.synchronize()
     wide = keys.long() & 0xFFFFFFFF
-    stages = (n.bit_length() - 1) * n.bit_length() // 2
-    bms, by = bound(2 * 4 * keys.numel(), keys.numel() // 2 * stages)
+    bms, by = bound(2 * 4 * keys.numel(), 0)
     row = dict(case=f"{rows_} rows x 2^{n.bit_length() - 1} keys", max_abs_err=max_err([out], [ref]),
                ms=cuda_ms(lambda: sort_u32(keys), 10),
                plain_ms=cuda_ms(lambda: sort_u32_plain(keys), 3),
                library_ms=cuda_ms(lambda: torch.sort(wide, dim=-1), 10),
                bound_ms=bms, bound_by=by)
+    rows = [("sort_u32", row)]
+    for name, k in (sort_edge_cases(gen).items() if edge else ()):
+        k = k.to("cuda")
+        err = max_err([sort_u32(k)], [sort_u32_plain(k)])
+        bms, by = bound(2 * 4 * k.numel(), 0)
+        w = k.long() & 0xFFFFFFFF
+        rows.append(("sort_u32", dict(
+            case=f"{name}: {k.shape[0]} rows x {k.shape[1]} keys", max_abs_err=err,
+            ms=cuda_ms(lambda: sort_u32(k), 5), plain_ms=cuda_ms(lambda: sort_u32_plain(k), 3),
+            library_ms=cuda_ms(lambda: torch.sort(w, dim=-1), 5), bound_ms=bms, bound_by=by)))
     kernels.restore_launches(saved)
-    return [("sort_u32", row)]
+    return rows
 
 
 def check_pippenger(curve, m, gen):
@@ -414,16 +451,21 @@ def main():
     for spec in (BN254_FR, BN254_FQ, BLS12_381_FQ, BLS12_377_FQ):
         record([("montmul", check_montmul(spec, 1 << 20, gen))])
     # every field instance at the flagship's shapes: points at 2^18 (G1)
-    # and 2^16 (G2); the inversion tree and affine products over 8 x 2^15
-    # points, tree level 1 over 8 x 2^20 / 2 slots, the level-0 queries over
-    # 8 x 32 windows x 255 buckets; the key sort over 8 rows of 2^20 keys
+    # and 2^16 (G2), and at the binary scalar muls' 16; the inversion tree
+    # and affine products over 8 x 2^15 points, tree level 1 over 8 x 2^20 / 2
+    # slots, the level-0 queries over 8 x 32 windows x 255 buckets; the key
+    # sort over 8 rows of 2^20 and of 2^19 keys
+    floor = launch_floor_ms()
+    log(f"launch floor: empty kernel {floor:.6f} ms a launch (CUDA graph)")
     for fam in CURVE_FAMILIES:
         for curve, lg in ((curve_g1(fam), 18), (curve_g2(fam), 16)):
             record(check_points(curve, 1 << lg, gen))
+            record(check_points(curve, 16, gen, small=True))
             record(check_ring(curve, 1 << 18, gen))
             record(check_affine_adds(curve, 1 << 22, 8 * 32 * 255, gen))
             torch.cuda.empty_cache()
-    record(check_sort(8, 1 << 20, gen))
+    record(check_sort(8, 1 << 20, gen, edge=True))
+    record(check_sort(8, 1 << 19, gen))
     for name, rows in cases.items():
         bad = [r for r in rows if r["max_abs_err"] != 0]
         if bad:
@@ -477,6 +519,7 @@ def main():
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head.get("library_ms"),
             "case": head["case"],
+            "launch_floor_ms": floor,
             "cases": rows,
         })
     print(f"card: {card}")

@@ -28,6 +28,7 @@ import torch
 from zksaas_tpu.curves.fused import _aadd_core, _add_core, _double_core, _kring, _madd_core
 from zksaas_tpu.fields import BLS12_377_FQ as J_377
 from zksaas_tpu.fields import BLS12_381_FQ as J_381
+from zksaas_tpu.fields import BN254_FQ as J_BN
 from zksaas_tpu.fields.kernel_lib import kernel_field
 from zksaas_tpu_torch import convert, kernels
 from zksaas_tpu_torch.curves import point_ops as po
@@ -38,7 +39,7 @@ from zksaas_tpu_torch.fields.spec import BLS12_377_FQ, BLS12_381_FQ
 
 torch.set_num_threads(1)
 
-J_FQ = {"bls12_381": J_381, "bls12_377": J_377}
+J_FQ = {"bls12_381": J_381, "bls12_377": J_377, "bn254": J_BN}
 CASES = [(fam, nc) for fam in ("bls12_381", "bls12_377") for nc in (1, 2)]
 IDS = [f"{fam}-g{nc}" for fam, nc in CASES]
 
@@ -229,6 +230,35 @@ def test_host_core_matches_plain(core, fam, ncoord):
     assert core.zkc_point_madd_if(nl, nr, ncoord, *map(_ptr, (*P, *B2, cq, *o)), n, prm) == 0
     for x, y in zip(o, po.point_madd_if_plain(spec, ncoord, P, B2, cq)):
         assert torch.equal(x, y)
+
+
+ALL = [(fam, nc) for fam in ("bn254", "bls12_381", "bls12_377") for nc in (1, 2)]
+
+
+@pytest.mark.parametrize("fam,ncoord", ALL, ids=[f"{f}-g{nc}" for f, nc in ALL])
+def test_host_core_grouped_add_matches_plain_and_jax_core(core, fam, ncoord):
+    """The grouped add's lane program (csrc/add_group.cuh: carry-chain Fq,
+    the lanes looped serially) as the add (no cond) and the add-if, on one
+    batch that mixes P == Q, P == -Q and points at infinity on either or both
+    sides: == fused.py::_add_core through fields/_xp, and the add-if ==
+    point_add_if_plain."""
+    C = _curve(fam, ncoord)
+    spec, n = C.spec, 16
+    nl, nr, prm = kernels.field_args(spec)
+    Pa, Qa = _pairs(C, n, seed=40 + ncoord)
+    P, Q = _jac(C, Pa, 41), _jac(C, Qa, 42)
+    want = _add_core(_kring(J_FQ[fam], ncoord), *(_np_elem(ncoord, c) for c in (*P, *Q)))
+    o = tuple(torch.empty_like(P[0]) for _ in range(3))
+    assert core.zkc_point_add_if(nl, nr, ncoord, *map(_ptr, (*P, *Q)), None, *map(_ptr, o), n,
+                                 prm) == 0
+    _assert_core_eq(ncoord, o, want)
+    cond = torch.from_numpy(np.random.default_rng(43).random(n) < 0.6)
+    assert core.zkc_point_add_if(nl, nr, ncoord, *map(_ptr, (*P, *Q, cond, *o)), n, prm) == 0
+    c = cond.numpy().reshape((-1,) + (1,) * ncoord)
+    for g, a, p, r in zip(o, want, P, po.point_add_if_plain(spec, ncoord, P, Q, cond)):
+        np.testing.assert_array_equal(convert.to_numpy(g),
+                                      np.where(c, _back(ncoord, a), convert.to_numpy(p)))
+        assert torch.equal(g, r)
 
 
 def test_host_core_refuses_what_was_not_built(core):

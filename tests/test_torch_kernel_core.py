@@ -4,19 +4,23 @@ csrc/field.cuh holds the field and point code every kernel runs, as
 __host__ __device__ functions.  Here plain g++ builds it (csrc/host_core.cpp,
 no torch headers) into a ctypes library under the port's git-ignored build
 directory, once per test run, and its montmul, add, add_if, double(k),
-ring product and inverse, affine+affine add, mixed add-if and bitonic sort
-network are compared with the plain PyTorch versions on a few hundred
-elements, special cases included.  Tolerance: exact equality.  The plain versions are
-held against the JAX package in test_torch_field.py / test_torch_curve.py.
+ring product and inverse, affine+affine add, mixed add-if and the radix
+sort's passes are compared with the plain PyTorch versions on a few hundred
+elements, special cases included; the sort also with the JAX package's
+sort_u32 (its jnp.sort branch on the CPU).  Tolerance: exact equality.  The
+plain versions are held against the JAX package in test_torch_field.py /
+test_torch_curve.py.
 """
 
 import random
 import shutil
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from zksaas_tpu.fields.sortperm import sort_u32 as j_sort_u32
 from zksaas_tpu_torch import kernels
 from zksaas_tpu_torch.curves import point_ops
 from zksaas_tpu_torch.curves.curve import curve_g1, curve_g2
@@ -173,6 +177,45 @@ def test_core_sort_matches_plain(core):
     out = t.clone()
     core.zkc_sort_u32(_ptr(out), out.numel(), 1024)
     assert torch.equal(out, sort_u32_plain(t))
+
+
+def _sort_keys(case):
+    """uint32 key rows for one case: 4 x 4,096 (one tile a row) unless the
+    case is about the shape."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    draw = lambda shape: rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32)
+    if case == "one_row_256":
+        return draw((1, 256))
+    if case == "rows_below_a_tile":
+        return draw((4, 1024))
+    if case == "multi_tile_rows":  # 4 tiles a row: random, one key, one high byte
+        keys = draw((3, 16384))
+        keys[1] = keys[1, 5]
+        keys[2] = (keys[2] & np.uint32(0xFFFFFF)) | np.uint32(0xA5 << 24)
+        return keys
+    keys = draw((4, 4096))
+    if case == "all_equal":
+        keys[:] = keys[0, 0]
+    elif case == "bit31_set":
+        keys |= np.uint32(1 << 31)
+    elif case == "high_byte_constant":
+        keys = (keys & np.uint32(0xFFFFFF)) | np.uint32(0x5A << 24)
+    return keys
+
+
+@pytest.mark.parametrize("case", ["random", "one_row_256", "rows_below_a_tile", "all_equal",
+                                  "bit31_set", "high_byte_constant", "multi_tile_rows"])
+def test_core_radix_sort_matches_plain_and_jax(core, case):
+    """The radix sort's passes (tiles, counts, scan, stable scatter, the
+    copy of a row whose keys share a digit), run serially, == sort_u32_plain
+    == the JAX sort_u32 row by row."""
+    keys = _sort_keys(case)
+    t = torch.from_numpy(keys.view(np.int32).copy())
+    out = t.clone()
+    assert core.zkc_sort_u32(_ptr(out), out.numel(), keys.shape[1]) == 0
+    assert torch.equal(out, sort_u32_plain(t))
+    want = np.stack([np.asarray(j_sort_u32(jnp.asarray(r))) for r in keys])
+    np.testing.assert_array_equal(out.numpy().view(np.uint32), want)
 
 
 def test_field_params_are_the_32bit_montgomery_constants():

@@ -4,8 +4,8 @@
 // Replaces the in-kernel limb library of the JAX package
 // (zksaas_tpu/fields/kernel_lib.py::KernelField), the point cores of
 // zksaas_tpu/curves/fused.py (_double_core, _add_core, _aadd_core,
-// _madd_core), its Fermat inverse (_finv_call) and the compare-exchange of
-// the bitonic sort (zksaas_tpu/fields/sortperm.py).
+// _madd_core), its Fermat inverse (_finv_call) and the digit passes of the
+// key sort (zksaas_tpu/fields/sortperm.py).
 //
 // An Fq element is NL little-endian 32-bit limbs in Montgomery form: NL = 8
 // for BN254's Fq and every scalar field (256-bit), NL = 12 for the BLS12
@@ -189,6 +189,7 @@ ZK_HD Fq<NL> fq_inv(const Fq<NL>& a, const FieldParams<NL>& F) {
 template <int N>
 struct RingFq {
     static constexpr int NL = N;
+    static constexpr int NEG_NR = 1;  // no non-residue: Fq has one coordinate
     typedef Fq<N> E;
     typedef FieldParams<N> P;
     static constexpr int LIMBS16 = 2 * N;  // 16-bit limbs per coordinate
@@ -213,6 +214,7 @@ template <int N, int NR>
 struct RingFq2 {
     static_assert(NR == 1 || NR == 5, "Fq2 is built for nr = -1 and nr = -5");
     static constexpr int NL = N;
+    static constexpr int NEG_NR = NR;
     typedef Fq2<N> E;
     typedef FieldParams<N> P;
     static constexpr int LIMBS16 = 4 * N;
@@ -252,7 +254,9 @@ struct RingFq2 {
 
 // ---------------------------------------------------------------------------
 // a = 0 Jacobian point formulas (zksaas_tpu/curves/fused.py::_double_core,
-// ::_add_core); the special cases are branches here instead of selects
+// ::_aadd_core, ::_madd_core; the complete add, ::_add_core, is the grouped
+// program of add_group.cuh); the special cases are branches here instead of
+// selects
 // ---------------------------------------------------------------------------
 
 template <class R>
@@ -286,46 +290,6 @@ ZK_HD void pt_chord(const typename R::E& H, const typename R::E& rr, const typen
     E V = R::mul(U1, I, F);
     X3 = R::sub(R::sub(R::sqr(rr, F), J, F), R::dbl(V, F), F);
     Y3 = R::sub(R::mul(rr, R::sub(V, X3, F), F), R::dbl(R::mul(S1, J, F), F), F);
-}
-
-// (X1, Y1, Z1) += (X2, Y2, Z2), complete: Q at infinity keeps P, P at
-// infinity gives Q, P == Q doubles, P == -Q gives (one, one, zero).
-template <class R>
-ZK_HD void pt_add(typename R::E& X1, typename R::E& Y1, typename R::E& Z1,
-                  const typename R::E& X2, const typename R::E& Y2,
-                  const typename R::E& Z2, const typename R::P& F) {
-    typedef typename R::E E;
-    if (R::is_zero(Z2)) return;
-    if (R::is_zero(Z1)) {
-        X1 = X2;
-        Y1 = Y2;
-        Z1 = Z2;
-        return;
-    }
-    E Z1Z1 = R::sqr(Z1, F);
-    E Z2Z2 = R::sqr(Z2, F);
-    E U1 = R::mul(X1, Z2Z2, F);
-    E U2 = R::mul(X2, Z1Z1, F);
-    E S1 = R::mul(R::mul(Y1, Z2, F), Z2Z2, F);
-    E S2 = R::mul(R::mul(Y2, Z1, F), Z1Z1, F);
-    E H = R::sub(U2, U1, F);
-    E rr = R::dbl(R::sub(S2, S1, F), F);
-    if (R::is_zero(H)) {
-        if (R::is_zero(rr)) {
-            pt_double<R>(X1, Y1, Z1, F);
-        } else {
-            X1 = R::one(F);
-            Y1 = R::one(F);
-            Z1 = R::zero();
-        }
-        return;
-    }
-    E X3, Y3;
-    pt_chord<R>(H, rr, U1, S1, X3, Y3, F);
-    E Z3 = R::mul(R::dbl(R::mul(Z1, Z2, F), F), H, F);
-    X1 = X3;
-    Y1 = Y3;
-    Z1 = Z3;
 }
 
 // Affine (X1, Y1) + affine (X2, Y2) -> Jacobian (X3, Y3, Z3), complete,
@@ -408,22 +372,39 @@ ZK_HD void pt_madd(typename R::E& X1, typename R::E& Y1, typename R::E& Z1,
 }
 
 // ---------------------------------------------------------------------------
-// bitonic network sorting each row of n keys (n a power of two) ascending as
-// unsigned 32-bit values (zksaas_tpu/fields/sortperm.py).  Stage k = 2, 4,
-// .., n runs substages j = k/2, .., 1; pair t of substage j joins keys
-// lo = bitonic_lo(t, j) and lo + j, ascending iff bit log2(k) of lo's place
-// in its row is 0 (so the last stage, k = n, sorts every row ascending).
+// LSD radix sort of each row of n keys ascending as unsigned 32-bit values
+// (zksaas_tpu/fields/sortperm.py): RADIX_PASSES stable passes over 8-bit
+// digits, least significant first.  A row longer than one tile of
+// RADIX_TILE keys runs each pass as per-tile digit counts, an exclusive
+// scan of each row's counts in (digit, tile) order, which gives every
+// tile's first place for each digit, and a stable scatter.  The counts and
+// each row's digit totals for every pass live in the caller's scratch
+// after a ping-pong copy of the keys; a row whose keys all share the
+// pass's digit (one total is n) keeps its order, so its scatter is a copy.
 // ---------------------------------------------------------------------------
 
-ZK_HD long bitonic_lo(long t, long j) { return ((t & ~(j - 1)) << 1) | (t & (j - 1)); }
+constexpr int RADIX_BITS = 8;
+constexpr int RADIX = 1 << RADIX_BITS;
+constexpr int RADIX_PASSES = 32 / RADIX_BITS;
+constexpr long RADIX_TILE = 4096;
 
-ZK_HD void bitonic_cmpex(uint32_t& a, uint32_t& b, long lo, long n, long k) {
-    bool asc = ((lo & (n - 1)) & k) == 0;
-    if (asc ? a > b : a < b) {
-        uint32_t t = a;
-        a = b;
-        b = t;
-    }
+ZK_HD uint32_t radix_digit(uint32_t key, int pass) {
+    return (key >> (RADIX_BITS * pass)) & (RADIX - 1);
+}
+
+// Index of (row, digit, tile) in the counts: digit-major within a row, so
+// an exclusive scan over a row's entries in memory order is the scatter's
+// offset table.
+ZK_HD long radix_count_index(long row, uint32_t digit, long tiles, long tile) {
+    return (row * RADIX + digit) * tiles + tile;
+}
+
+// 32-bit words of scratch a sort of `total` keys in rows of n needs: the
+// ping-pong copy, RADIX counts per tile and RADIX totals per row and pass
+// (none when a row fits in one tile and is sorted in shared memory).
+ZK_HD long radix_scratch_words(long total, long n) {
+    return n > RADIX_TILE ? total + total / RADIX_TILE * RADIX + RADIX_PASSES * (total / n) * RADIX
+                          : 0;
 }
 
 // ---------------------------------------------------------------------------

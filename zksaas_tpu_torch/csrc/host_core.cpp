@@ -7,32 +7,24 @@
 
 #include <stdint.h>
 
+#include <vector>
+
+#include "add_group.cuh"
 #include "field.cuh"
 
 using namespace zk;
 
+// The grouped add's lane program (add_group.cuh), one point after the
+// other, each step's items (the lanes' work) in a serial loop.
 template <class R>
 static void add_loop(const int32_t* x1, const int32_t* y1, const int32_t* z1,
                      const int32_t* x2, const int32_t* y2, const int32_t* z2,
                      const uint8_t* cond, int32_t* ox, int32_t* oy, int32_t* oz, long n,
                      const uint32_t* params) {
     typename R::P F = params_from<R::NL>(params);
-    for (long i = 0; i < n; i++) {
-        const long off = i * R::LIMBS16;
-        typename R::E X, Y, Z, X2, Y2, Z2;
-        load16(x1 + off, X);
-        load16(y1 + off, Y);
-        load16(z1 + off, Z);
-        if (cond == nullptr || cond[i]) {
-            load16(x2 + off, X2);
-            load16(y2 + off, Y2);
-            load16(z2 + off, Z2);
-            pt_add<R>(X, Y, Z, X2, Y2, Z2, F);
-        }
-        store16(ox + off, X);
-        store16(oy + off, Y);
-        store16(oz + off, Z);
-    }
+    std::vector<uint32_t> slots(AddGroup<R>::WORDS);
+    AddGroup<R> g{slots.data(), F, 0, 0};
+    for (long i = 0; i < n; i++) g.run(x1, y1, z1, x2, y2, z2, cond, ox, oy, oz, i);
 }
 
 template <class R>
@@ -196,15 +188,84 @@ int zkc_point_madd_if(int nl, int nr, int ncoord, const int32_t* x1, const int32
     });
 }
 
-// The sort kernels' network, every substage as one loop over its pairs.
+// The sort kernels' passes (kernels.cu::zk_sort_u32), each of their
+// launches as a serial loop: every pass's row totals, then per pass the
+// per-tile digit counts, the scan and the stable scatter (a copy for a row
+// whose keys share the pass's digit), ping-ponging through a scratch copy; rows
+// of at most one tile padded with all-ones keys and sorted by the same
+// stable passes.
 int zkc_sort_u32(int32_t* keys, long total, long n) {
+    if (n < 2 || total < n) return 0;
     uint32_t* k = reinterpret_cast<uint32_t*>(keys);
-    for (long kk = 2; kk <= n; kk <<= 1)
-        for (long j = kk >> 1; j >= 1; j >>= 1)
-            for (long t = 0; t < total / 2; t++) {
-                const long lo = bitonic_lo(t, j);
-                bitonic_cmpex(k[lo], k[lo + j], lo, n, kk);
+    const long rows = total / n;
+    if (n <= RADIX_TILE) {
+        std::vector<uint32_t> a(RADIX_TILE), b(RADIX_TILE);
+        for (long r = 0; r < rows; r++) {
+            for (long q = 0; q < RADIX_TILE; q++) a[q] = q < n ? k[r * n + q] : 0xFFFFFFFFu;
+            for (int pass = 0; pass < RADIX_PASSES; pass++) {
+                uint32_t start[RADIX] = {0};
+                for (long q = 0; q < RADIX_TILE; q++) start[radix_digit(a[q], pass)]++;
+                for (uint32_t d = 0, run = 0; d < RADIX; d++) {
+                    const uint32_t c = start[d];
+                    start[d] = run;
+                    run += c;
+                }
+                for (long q = 0; q < RADIX_TILE; q++) b[start[radix_digit(a[q], pass)]++] = a[q];
+                a.swap(b);
             }
+            for (long q = 0; q < n; q++) k[r * n + q] = a[q];
+        }
+        return 0;
+    }
+    const long tiles = n / RADIX_TILE, nblocks = total / RADIX_TILE;
+    std::vector<uint32_t> scratch(radix_scratch_words(total, n));
+    uint32_t* alt = scratch.data();
+    uint32_t* counts = alt + total;
+    uint32_t* rowhist = counts + nblocks * RADIX;  // zeroed
+    for (long q = 0; q < total; q++)  // every pass's row totals
+        for (int p = 0; p < RADIX_PASSES; p++)
+            rowhist[(p * rows + q / n) * RADIX + radix_digit(k[q], p)]++;
+    for (int pass = 0; pass < RADIX_PASSES; pass++) {
+        const uint32_t* src = pass % 2 ? alt : k;
+        uint32_t* dst = pass % 2 ? k : alt;
+        auto fixed = [&](long row) {  // one digit holds the whole row
+            return rowhist[(pass * rows + row) * RADIX + radix_digit(src[row * n], pass)] ==
+                   (uint32_t)n;
+        };
+        for (long b = 0; b < nblocks; b++) {  // tile counts
+            uint32_t h[RADIX] = {0};
+            for (long q = 0; q < RADIX_TILE; q++) h[radix_digit(src[b * RADIX_TILE + q], pass)]++;
+            for (uint32_t d = 0; d < RADIX; d++)
+                counts[radix_count_index(b / tiles, d, tiles, b % tiles)] = h[d];
+        }
+        for (long r = 0; r < rows; r++) {  // scan: smaller digits' total, then the tiles
+            if (fixed(r)) continue;
+            uint32_t below = 0;
+            for (uint32_t d = 0; d < RADIX; d++) {
+                uint32_t run = below;
+                for (long t = 0; t < tiles; t++) {
+                    uint32_t& c = counts[radix_count_index(r, d, tiles, t)];
+                    const uint32_t v = c;
+                    c = run;
+                    run += v;
+                }
+                below += rowhist[(pass * rows + r) * RADIX + d];
+            }
+        }
+        for (long b = 0; b < nblocks; b++) {  // stable scatter
+            const long row = b / tiles, base = b * RADIX_TILE;
+            if (fixed(row)) {
+                for (long q = 0; q < RADIX_TILE; q++) dst[base + q] = src[base + q];
+                continue;
+            }
+            uint32_t seen[RADIX] = {0};
+            for (long q = 0; q < RADIX_TILE; q++) {
+                const uint32_t key = src[base + q], d = radix_digit(key, pass);
+                dst[row * n + counts[radix_count_index(row, d, tiles, b % tiles)] + seen[d]++] =
+                    key;
+            }
+        }
+    }
     return 0;
 }
 

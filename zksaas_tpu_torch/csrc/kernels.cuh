@@ -8,6 +8,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "add_group.cuh"
 #include "field.cuh"
 
 namespace zk {
@@ -55,30 +56,27 @@ __device__ __forceinline__ void vstore(int32_t* dst, const Fq2<NL>& a) {
     vstore(dst + 2 * NL, a.c1);
 }
 
+// Kernels 2-3: cond ? P + Q : P (cond == nullptr: P + Q), one group of
+// add_lanes<R>() lanes per point running AddGroup<R>::run (add_group.cuh);
+// each group's slots are its part of the block's dynamic shared memory.
+constexpr int ADD_THREADS = 128;
+
 template <class R>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(ADD_THREADS)
 add_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
            const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
            const int32_t* __restrict__ y2, const int32_t* __restrict__ z2,
            const uint8_t* __restrict__ cond, int32_t* __restrict__ ox,
            int32_t* __restrict__ oy, int32_t* __restrict__ oz, long n, typename R::P F) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const long off = i * R::LIMBS16;
-    typename R::E X, Y, Z;
-    vload(x1 + off, X);
-    vload(y1 + off, Y);
-    vload(z1 + off, Z);
-    if (cond == nullptr || cond[i]) {
-        typename R::E X2, Y2, Z2;
-        vload(x2 + off, X2);
-        vload(y2 + off, Y2);
-        vload(z2 + off, Z2);
-        pt_add<R>(X, Y, Z, X2, Y2, Z2, F);
-    }
-    vstore(ox + off, X);
-    vstore(oy + off, Y);
-    vstore(oz + off, Z);
+    extern __shared__ int4 add_smem[];
+    typedef AddGroup<R> Grp;
+    constexpr int G = Grp::G;
+    const int grp = threadIdx.x / G, lane = threadIdx.x % G;
+    const long i = (long)blockIdx.x * (ADD_THREADS / G) + grp;
+    if (i >= n) return;  // the whole group: the others' barriers do not wait on it
+    const unsigned mask = ((G == 32 ? 0u : 1u << G) - 1u) << ((threadIdx.x & 31) / G * G);
+    Grp g{reinterpret_cast<uint32_t*>(add_smem) + grp * Grp::WORDS, F, lane, mask};
+    g.run(x1, y1, z1, x2, y2, z2, cond, ox, oy, oz, i);
 }
 
 template <class R>
@@ -180,7 +178,10 @@ template <class R>
 int launch_add(const int32_t* x1, const int32_t* y1, const int32_t* z1, const int32_t* x2,
                const int32_t* y2, const int32_t* z2, const uint8_t* cond, int32_t* ox,
                int32_t* oy, int32_t* oz, long n, const uint32_t* params, cudaStream_t s) {
-    add_kernel<R><<<blocks(n, THREADS), THREADS, 0, s>>>(
+    constexpr int per_block = ADD_THREADS / AddGroup<R>::G;
+    constexpr size_t smem = per_block * AddGroup<R>::WORDS * sizeof(uint32_t);
+    static_assert(smem <= 48 * 1024, "the add's slots must fit the default shared memory");
+    add_kernel<R><<<blocks(n, per_block), ADD_THREADS, smem, s>>>(
         x1, y1, z1, x2, y2, z2, cond, ox, oy, oz, n, params_from<R::NL>(params));
     return (int)cudaGetLastError();
 }

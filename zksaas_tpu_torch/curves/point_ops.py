@@ -6,7 +6,8 @@ Ports of zksaas_tpu/curves/fused.py::_add_call (fused_add), ::_add_select_call
 ::_finv_call (pfinv), ::_aadd_call (paddaa) and ::_madd_select_call
 (pmadd_if): a = 0 Jacobian formulas and coordinate-ring arithmetic over Fq
 (G1, (B, K) coordinates) or Fq2 = Fq[u]/(u^2 - nr) (G2, (B, 2, K)), one
-thread per element in csrc/kernels.cuh, for K = 16 (BN254) and K = 24
+thread per element in csrc/kernels.cuh (the add and add-if: a group of
+lanes per point, csrc/add_group.cuh), for K = 16 (BN254) and K = 24
 (BLS12-381, BLS12-377; nr = -5 for BLS12-377's Fq2).  Each wrapper (`point_add`, `ring_mul`, ...) launches the
 CUDA kernel for CUDA tensors and takes the plain PyTorch version
 (`*_plain`) only for CPU tensors.
@@ -32,6 +33,9 @@ from ..fields.spec import fq2_nonresidue
 
 
 def _stack(ts):
+    shape = ts[0].shape
+    if all(t.shape == shape for t in ts):
+        return torch.stack(ts)
     return torch.stack(torch.broadcast_tensors(*ts))
 
 
@@ -75,10 +79,10 @@ class _PlainRing:
         a, b = _stack([a for a, _ in pairs]), _stack([b for _, b in pairs])
         if self.ncoord == 1:
             return montmul_plain(self.spec, a, b).unbind(0)
-        # Karatsuba: (t0 + nr t1, (a0 + a1)(b0 + b1) - t0 - t1)
+        # Karatsuba: (t0 + nr t1, (a0 + a1)(b0 + b1) - t0 - t1); the sums
+        # stay unreduced (< 2p, and 4p < R keeps their product below R p)
         a0, a1, b0, b1 = a[..., 0, :], a[..., 1, :], b[..., 0, :], b[..., 1, :]
-        s = add64(self.spec, torch.stack([a0, b0]), torch.stack([a1, b1]))
-        t = montmul_plain(self.spec, torch.stack([a0, a1, s[0]]), torch.stack([b0, b1, s[1]]))
+        t = montmul_plain(self.spec, torch.stack([a0, a1, a0 + a1]), torch.stack([b0, b1, b0 + b1]))
         u = sub64(self.spec, torch.stack([t[0], t[2]]),
                   torch.stack([_neg_nr(self.spec, self.nr, t[1]), t[0]]))
         c1 = sub64(self.spec, u[1], t[1])

@@ -122,9 +122,11 @@ def _multiples(p: int, k: int, count: int, device):
 
 
 def sub_multiples(r, p: int, k: int, count: int):
-    """r mod p for exact limbs r (..., k+2) of a value < count p (< 2R):
-    every candidate r - j p + 2R at once; the largest j whose candidate
-    reaches 2R (limb k >= 2) gives the residue in its low k limbs."""
+    """r mod p for limbs r (..., k+2) of a value < count p (< 2R), exact
+    or redundant (non-negative columns below 3 2^16, as split_columns
+    leaves them): every candidate r - j p + 2R at once, carried by one
+    normalization; the largest j whose candidate reaches 2R (limb k >= 2)
+    gives the residue in its low k limbs."""
     c, _ = normalize(r.unsqueeze(-2) + _multiples(p, k, count, r.device))  # (..., count, k+2)
     j = (c[..., k] >= 2).sum(-1, keepdim=True) - 1
     idx = j.unsqueeze(-1).expand(j.shape + (k,))

@@ -16,7 +16,7 @@ import functools
 import torch
 
 from .. import kernels
-from .limbs import M16, normalize, split_columns, sub_multiples
+from .limbs import M16, split_columns, sub_multiples
 
 
 @functools.cache
@@ -73,21 +73,33 @@ def _montmul_redc(spec, a, b):
 @functools.cache
 def _mats(spec, device):
     """Constant float64 matrices of the small-batch plain version: Ck sums
-    the products a_i b_j into their columns i + j; TNP and TP are the
-    Toeplitz matrices of N' (low K columns) and p, so x @ TNP and x @ TP
-    are the product columns of x N' and x p; w weighs column c by
+    the products a_i b_j into their columns i + j; TNP and TP take the
+    16-bit pieces of K columns (piece s of column i, worth 2^(16 (i + s)),
+    s < 3, in that order) to the product columns of their value mod R
+    times N' (low K columns) and times p; w weighs column c by
     2^(16 (c - K))."""
     k = spec.nlimbs
     P, NP, _ = (c.double() for c in _consts(spec, device))
     i = torch.arange(k, device=device)
     Ck = torch.zeros(k * k, 2 * k - 1, dtype=torch.float64, device=device)
     Ck[torch.arange(k * k, device=device), (i.view(-1, 1) + i.view(1, -1)).reshape(-1)] = 1.0
-    d = i.view(1, -1) - i.view(-1, 1)
+    at = (i.view(-1, 1) + torch.arange(3, device=device).view(1, -1)).reshape(-1, 1)  # i + s
+    d = i.view(1, -1) - at
     TNP = torch.where(d >= 0, NP[d.clamp(min=0)], 0.0)
-    d = torch.arange(2 * k - 1, device=device).view(1, -1) - i.view(-1, 1)
-    TP = torch.where((d >= 0) & (d < k), P[d.clamp(0, k - 1)], 0.0)
+    d = torch.arange(2 * k - 1, device=device).view(1, -1) - at
+    TP = torch.where((d >= 0) & (d < k) & (at < k), P[d.clamp(0, k - 1)], 0.0)
     w = 2.0 ** (16 * (i - k).double())
     return Ck, TNP, TP, w
+
+
+@functools.cache
+def _shifts3(device):
+    return torch.tensor([0, 16, 32], dtype=torch.int64, device=device)
+
+
+def _pieces(x):
+    """(..., n) columns below 2^48 -> (..., 3n): the 16-bit pieces of each."""
+    return ((x.unsqueeze(-1) >> _shifts3(x.device)) & M16).flatten(-2)
 
 
 def _fmm(x, M):
@@ -98,27 +110,29 @@ def _fmm(x, M):
 
 def montmul_plain(spec, a, b):
     """Plain version on int64 limb tensors (broadcasting).  Needs a b < R p
-    (canonical operands, or one raw operand < R times a canonical one).
+    (canonical operands, or one raw operand < R times a canonical one, or
+    two unreduced sums of canonical elements, each < 2p with limbs below
+    2^17, since 4p < R for every field here).
     Large batches take the limb-major REDC above.  Small ones take a
     separated Montgomery reduction in few calls, with float64 matrix
     products against constants, each exact (sums below 2^40): the product
-    columns T of a b (< K 2^32); m = T N' mod R from T's low half in 16-bit
-    pieces, kept redundant (< 3R); S = T + m p (= 0 mod R); the carry out
-    of S's low K columns, an integer < 2^25 that float64 sums within
+    columns T of a b (< K 2^34); m = T N' mod R from T's low half in 16-bit
+    pieces, kept as the pieces of its columns below R (< 3R); S = T + m p
+    (= 0 mod R), straight from those pieces; the carry out
+    of S's low K columns, an integer < 2^27 that float64 sums within
     2^-24, so U = S / R < (R p + 3R p) / R + p = 5p; the last step picks
-    the residue among U - j p, j < 5."""
+    the residue among U - j p, j < 5, from U's columns cut to 16-bit
+    pieces, which sub_multiples' one normalization carries."""
     a, b = torch.broadcast_tensors(a, b)
     if a.numel() >= _REDC_MIN * spec.nlimbs:
         return _montmul_redc(spec, a, b)
     k = spec.nlimbs
     Ck, TNP, TP, w = _mats(spec, a.device)
     T = _fmm((a.unsqueeze(-1) * b.unsqueeze(-2)).flatten(-2), Ck)
-    m = split_columns(_fmm(split_columns(T[..., :k], 3)[..., :k], TNP), 3)[..., :k]
-    S = T + _fmm(m, TP)
+    S = T + _fmm(_pieces(_fmm(_pieces(T[..., :k]), TNP)), TP)
     U = S[..., k:].clone()
     U[..., 0] += torch.round(S[..., :k].double() @ w).long()
-    Un, _ = normalize(split_columns(U, 3))
-    return sub_multiples(torch.nn.functional.pad(Un, (0, 1)), spec.p, k, 5)
+    return sub_multiples(torch.nn.functional.pad(split_columns(U, 3), (0, 1)), spec.p, k, 5)
 
 
 def _check(a, b):

@@ -1,4 +1,4 @@
-"""Kernel 9: ascending sort of unsigned 32-bit keys by a bitonic network.
+"""Kernel 9: ascending sort of unsigned 32-bit keys by an LSD radix sort.
 
 Port of zksaas_tpu/fields/sortperm.py::sort_u32 (the _stage_call kernel,
 one bitonic k-stage per launch under _sort_call).  The bucket-Pippenger MSM
@@ -41,7 +41,10 @@ def sort_u32(keys):
         raise ValueError(f"sort_u32 runs on cuda or cpu, not {keys.device}")
     out = keys.contiguous().clone()
     if out.numel():
-        rc = kernels.cuda_lib().zk_sort_u32(out.data_ptr(), out.numel(), n,
-                                             kernels.stream_of(out))
+        lib = kernels.cuda_lib()
+        scratch = torch.empty(lib.zk_sort_u32_scratch_words(out.numel(), n),
+                              dtype=torch.int32, device=out.device)
+        rc = lib.zk_sort_u32(out.data_ptr(), scratch.data_ptr(), out.numel(), n,
+                             kernels.stream_of(out))
         kernels.check(kernels.SORT_U32, rc)
     return out

@@ -1,7 +1,9 @@
 """Build, load and count the port's hand-written kernels.
 
-The CUDA sources live in csrc/: field.cuh (the arithmetic), kernels.cuh
-(the point and ring kernels as templates over the coordinate ring),
+The CUDA sources live in csrc/: field.cuh (the arithmetic), add_group.cuh
+(the complete add as a program for a group of lanes, on carry-chain
+arithmetic), kernels.cuh (the point and ring kernels as templates over the
+coordinate ring),
 kernels.cu (the C interface, montmul and the sort) and one ring_*.cu per
 coordinate ring.  They are compiled at first use with nvcc for sm_90a, one
 nvcc per source, all started together, and linked into one shared library
@@ -174,7 +176,7 @@ def cuda_sources() -> list:
 
 
 def _headers() -> list:
-    return [os.path.join(CSRC, f) for f in ("field.cuh", "kernels.cuh")]
+    return [os.path.join(CSRC, f) for f in ("field.cuh", "add_group.cuh", "kernels.cuh")]
 
 
 _POINT_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int]  # limbs, nr, ncoord
@@ -196,10 +198,13 @@ def cuda_lib():
     L.zk_ring_inv.argtypes = _POINT_ARGS + [_PTR] * 2 + [ctypes.c_long, _PTR, _PTR]
     L.zk_point_aadd.argtypes = _POINT_ARGS + [_PTR] * 9 + [ctypes.c_long, _PTR, _PTR]
     L.zk_point_madd_if.argtypes = _POINT_ARGS + [_PTR] * 9 + [ctypes.c_long, _PTR, _PTR]
-    L.zk_sort_u32.argtypes = [_PTR, ctypes.c_long, ctypes.c_long, _PTR]
+    L.zk_sort_u32.argtypes = [_PTR, _PTR, ctypes.c_long, ctypes.c_long, _PTR]
+    L.zk_sort_u32_scratch_words.argtypes = [ctypes.c_long, ctypes.c_long]
+    L.zk_sort_u32_scratch_words.restype = ctypes.c_long
+    L.zk_empty.argtypes = [_PTR]
     for fn in (L.zk_montmul, L.zk_point_add, L.zk_point_add_if, L.zk_point_double,
                L.zk_ring_mul, L.zk_ring_inv, L.zk_point_aadd, L.zk_point_madd_if,
-               L.zk_sort_u32):
+               L.zk_sort_u32, L.zk_empty):
         fn.restype = ctypes.c_int
     return L
 
@@ -210,7 +215,7 @@ def host_core():
     src = os.path.join(CSRC, "host_core.cpp")
     path = build_shared(
         "zkcore", [src], ["g++", "-O2", "-std=c++17", "-shared", "-fPIC"],
-        deps=[os.path.join(CSRC, "field.cuh")],
+        deps=[os.path.join(CSRC, f) for f in ("field.cuh", "add_group.cuh")],
     )
     L = ctypes.CDLL(path)
     L.zkc_montmul.argtypes = [ctypes.c_int, _PTR, _PTR, _PTR, ctypes.c_long, _PTR]

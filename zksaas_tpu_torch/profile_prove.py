@@ -10,8 +10,8 @@ device-busy seconds (the union of all kernel intervals in the trace), the
 device's idle share over the profiled prove, device seconds
 and launches per kernel name, and the launches of the port's own kernels
 by their counters.  It also compiles every CUDA source once more with
-`-Xptxas -v` (all at once) and reports each kernel's registers and spill
-bytes.  The
+`-Xptxas -v` (all at once) and reports each kernel's registers, stack
+frame and spill bytes.  The
 Chrome trace is written to the git-ignored build directory.  Needs a CUDA
 device.
 """
@@ -75,10 +75,19 @@ def _kernel_table(trace_path: str) -> dict:
 
 
 def _kernel_label(mangled: str) -> str:
-    """add_kernel<Fq2[12, nr -5]> and the like, from a mangled kernel name."""
-    base = re.search(
-        r"(montmul|ring_mul|ring_inv|aadd|madd_if|add|double|sort_tile|sort_step)_kernel",
-        mangled).group(0)
+    """add_kernel<Fq2[12, nr -5]> and the like, from a mangled kernel name
+    (whose identifiers each follow their length)."""
+    base, i = mangled, 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            i += 1
+            continue
+        name = mangled[i + m.end(): i + m.end() + int(m.group())]
+        if name.endswith("_kernel"):
+            base = name
+            break
+        i += m.end() + len(name)
     m = re.search(r"RingFq(2?)ILi(\d+)E(?:Li(\d+)E)?", mangled)
     if m:
         return (f"{base}<Fq2[{m.group(2)}, nr -{m.group(3)}]>" if m.group(1)
@@ -106,9 +115,11 @@ def _ptxas() -> list:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 rows.append({"kernel": _kernel_label(m.group(1))})
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
             if m and rows:
-                rows[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+                rows[-1].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
             m = re.search(r"Used (\d+) registers", line)
             if m and rows:
                 rows[-1]["registers"] = int(m.group(1))
