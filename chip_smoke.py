@@ -10,8 +10,9 @@
    key sort as its library yardstick: every field instance of every
    kernel, BN254 (16 16-bit limbs), BLS12-381 and BLS12-377 (24 limbs,
    Fq2 nr = -5 for BLS12-377), G1 and G2; the add, add-if and double also
-   at 16 points, the batch of the prove's binary scalar muls, timed as
-   device time in a CUDA graph beside the empty kernel's (the launch
+   at 16 points, the batch of the prove's binary scalar muls, and the
+   double at the window fold's 8 points x 128 doublings and 128 x 8, timed
+   as device time in a CUDA graph beside the empty kernel's (the launch
    floor); the key sort also at 8 x 2^19 keys and on edge cases (one row
    of 256 keys, rows shorter than a tile, all keys equal, all with bit 31
    set, a constant high byte);
@@ -163,8 +164,9 @@ def test_points(curve, n, gen, dev="cuda"):
 
 def check_points(curve, n, gen, small=False):
     """The add, add-if and double(k) over n points with every special case;
-    small: the main path's batch, timed as device time in a CUDA graph, and
-    the double at k = 1 only."""
+    small: the main path's batch, timed as device time in a CUDA graph, the
+    double at k = 1, and at the window fold's shapes: 8 points doubled 128
+    times, 128 points 8 times."""
     from zksaas_tpu_torch import kernels
     from zksaas_tpu_torch.curves import point_ops as po
 
@@ -206,15 +208,20 @@ def check_points(curve, n, gen, small=False):
         plain_ms=cuda_ms(lambda: po.point_add_if_plain(spec, nc, P, Q, cond), 1),
         bound_ms=bms, bound_by=by)))
 
-    for k in (1,) if small else (1, 4):
-        out = po.point_double(spec, nc, P, k)
-        ref = po.point_double_plain(spec, nc, P, k)
+    doubles = [(P, tag, 1)] if small else [(P, tag, 1), (P, tag, 4)]
+    if small:
+        for m, k in ((8, 128), (128, 8)):
+            doubles.append((test_points(curve, m, gen)[0], f"{curve.name} n={m}", k))
+    for D, dtag, k in doubles:
+        m = D[0].shape[0]
+        out = po.point_double(spec, nc, D, k)
+        ref = po.point_double_plain(spec, nc, D, k)
         torch.cuda.synchronize()
-        bms, by = bound(6 * nbytes_coord, n * k * MULS_DOUBLE * ring_muls * opm)
+        bms, by = bound(6 * m * coord, m * k * MULS_DOUBLE * ring_muls * opm)
         rows.append(("point_double", dict(
-            case=f"{tag} k={k}", field=spec.name, max_abs_err=max_err(out, ref),
-            ms=timed(lambda: po.point_double(spec, nc, P, k)),
-            plain_ms=cuda_ms(lambda: po.point_double_plain(spec, nc, P, k), 1),
+            case=f"{dtag} k={k}", field=spec.name, max_abs_err=max_err(out, ref),
+            ms=timed(lambda: po.point_double(spec, nc, D, k)),
+            plain_ms=cuda_ms(lambda: po.point_double_plain(spec, nc, D, k), 1),
             bound_ms=bms, bound_by=by)))
     kernels.restore_launches(saved)  # comparison launches do not count
     return rows

@@ -39,6 +39,8 @@ from zksaas_tpu_torch.groth16.ext_wit import circom_h
 from zksaas_tpu_torch.pss.pss import pss
 from zksaas_tpu_torch.utils.rng import generator
 
+from test_torch_heap import release_heap  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 

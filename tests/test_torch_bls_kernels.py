@@ -37,6 +37,8 @@ from zksaas_tpu_torch.fields.field import field
 from zksaas_tpu_torch.fields.montmul import montmul_plain
 from zksaas_tpu_torch.fields.spec import BLS12_377_FQ, BLS12_381_FQ
 
+from test_torch_heap import release_heap  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 J_FQ = {"bls12_381": J_381, "bls12_377": J_377, "bn254": J_BN}
@@ -259,6 +261,46 @@ def test_host_core_grouped_add_matches_plain_and_jax_core(core, fam, ncoord):
         np.testing.assert_array_equal(convert.to_numpy(g),
                                       np.where(c, _back(ncoord, a), convert.to_numpy(p)))
         assert torch.equal(g, r)
+
+
+OPS = [(op, fam, nc) for op in ("double", "aadd") for fam, nc in ALL]
+
+
+@pytest.mark.parametrize("op,fam,ncoord", OPS, ids=[f"{o}-{f}-g{nc}" for o, f, nc in OPS])
+def test_host_core_grouped_double_and_aadd_match_plain_and_jax_core(core, op, fam, ncoord):
+    """The grouped k-fold double and affine+affine add (csrc/add_group.cuh:
+    carry-chain Fq, the lanes looped serially) at 16 lanes: the double of
+    Jacobian points with random Z, two of them at infinity, at k = 1 and 3
+    == fused.py::_double_core applied k times and point_double_plain; the
+    aadd of affine pairs mixing P == Q, P == -Q and infinity flags on either
+    or both sides == fused.py::_aadd_core and point_aadd_plain."""
+    C = _curve(fam, ncoord)
+    spec, n = C.spec, 16
+    nl, nr, prm = kernels.field_args(spec)
+    R = _kring(J_FQ[fam], ncoord)
+    Pa, Qa = _pairs(C, n, seed=50 + ncoord)
+    o = tuple(torch.empty(n, *C.R.coord_shape, dtype=torch.int32) for _ in range(3))
+    if op == "double":
+        P = _jac(C, Pa, 51)
+        for k in (1, 3):
+            assert core.zkc_point_double(nl, nr, ncoord, *map(_ptr, (*P, *o)), n, k, prm) == 0
+            want = tuple(_np_elem(ncoord, c) for c in P)
+            for _ in range(k):
+                want = _double_core(R, *want)
+            _assert_core_eq(ncoord, o, want)
+            for g, r in zip(o, po.point_double_plain(spec, ncoord, P, k)):
+                assert torch.equal(g, r)
+    else:
+        infP = torch.tensor([p is None for p in Pa])
+        infQ = torch.tensor([q is None for q in Qa])
+        A, B = C.encode(Pa, device="cpu")[:2], C.encode(Qa, device="cpu")[:2]
+        assert core.zkc_point_aadd(nl, nr, ncoord, *map(_ptr, (*A, *B, infP, infQ, *o)), n,
+                                   prm) == 0
+        want = _aadd_core(R, *(_np_elem(ncoord, c) for c in (*A, *B)), infP.numpy(),
+                          infQ.numpy())
+        _assert_core_eq(ncoord, o, want)
+        for g, r in zip(o, po.point_aadd_plain(spec, ncoord, A, B, infP, infQ)):
+            assert torch.equal(g, r)
 
 
 def test_host_core_refuses_what_was_not_built(core):

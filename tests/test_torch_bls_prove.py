@@ -37,6 +37,8 @@ from zksaas_tpu_torch.groth16.setup_device import (
 from zksaas_tpu_torch.pss.pss import pss
 from zksaas_tpu_torch.utils.rng import generator, split
 
+from test_torch_heap import release_heap  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 DEV = "cpu"
 

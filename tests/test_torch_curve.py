@@ -25,6 +25,8 @@ from zksaas_tpu_torch.curves import point_ops
 from zksaas_tpu_torch.curves.curve import curve_g1, curve_g2
 from zksaas_tpu_torch.curves.fixed_base import fixed_base_mul
 
+from test_torch_heap import release_heap  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 JREF = {1: jref.BN254_G1, 2: jref.BN254_G2}

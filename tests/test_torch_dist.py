@@ -32,6 +32,8 @@ from zksaas_tpu_torch.pss.pss import pss
 from zksaas_tpu_torch.utils.pack import rearrange_perm, stride_chunks, unstride_chunks
 from zksaas_tpu_torch.utils.rng import generator, split
 
+from test_torch_heap import release_heap  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 SPEC = BN254_FR

@@ -20,6 +20,8 @@ from zksaas_tpu_torch.fields import montmul as tmontmul
 from zksaas_tpu_torch.fields.field import Field as TField
 from zksaas_tpu_torch.fields.spec import FIELDS as TFIELDS
 
+from test_torch_heap import release_heap  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 NAMES = ["bn254_fr", "bn254_fq"]

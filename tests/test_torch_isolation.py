@@ -16,6 +16,8 @@ import sys
 
 import pytest
 
+from test_torch_heap import release_heap  # noqa: F401  (autouse)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

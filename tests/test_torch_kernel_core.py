@@ -29,6 +29,8 @@ from zksaas_tpu_torch.fields.montmul import montmul_plain
 from zksaas_tpu_torch.fields.sortperm import sort_u32_plain
 from zksaas_tpu_torch.fields.spec import BN254_FQ, BN254_FR
 
+from test_torch_heap import release_heap  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 

@@ -42,6 +42,8 @@ from zksaas_tpu_torch.fields.spec import BN254_FR
 from zksaas_tpu_torch.pss.pss import pss
 from zksaas_tpu_torch.utils.rng import generator, split
 
+from test_torch_heap import release_heap  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 JREF = {1: jref.BN254_G1, 2: jref.BN254_G2}

@@ -1,26 +1,31 @@
-// The complete Jacobian add of kernels 2-3 (point_add, point_add_if) as a
-// program for a group of G lanes that share one point, and the Fq
-// arithmetic it runs on: Montgomery products, adds and subs written as
-// carry chains.
+// The grouped point programs of kernels 2-4 and 7 (point_add / point_add_if,
+// point_double(k), point_aadd): each runs on a group of G lanes that share
+// one point, on the Fq arithmetic defined here, Montgomery products, adds
+// and subs written as carry chains.
 //
-// Replaces the one-thread-per-point add of zksaas_tpu/curves/fused.py's
-// _add_call / _add_select_call (the formula _add_core).  The main path adds
-// 8-24 points a launch (the binary scalar muls of the king's mat-vecs and
-// of the r/s shares), so a launch costs the latency of one point's add:
-// 16 dependent Fq products in G1, 48 in G2, in series on one thread.  Here
-// the G lanes of a group compute the independent products of each level of
-// the formula's dependency graph at once (G1: Z1^2 | Z2^2 | Y1 Z2 | Y2 Z1,
-// then U1 | U2 | S1 | S2, ...; in G2 the three Fq products of each
-// Karatsuba Fq2 product are separate items), so a G1 add is 5 products
-// deep and a G2 add 8-10 deep.  The lanes pass operands through shared
-// memory (one slot array per group, synchronised with __syncwarp over the
-// group's lanes); each lane holds two operands and one product in
-// registers, so no instance needs the 255 registers and spills of a whole
-// point per thread.  A group decides the special cases (infinity operands,
-// cond false, P == Q, P == -Q) on values every lane reads, so it never
-// diverges; P == Q runs the doubling as a grouped program too.
+// Replaces the one-thread-per-point formulas of zksaas_tpu/curves/fused.py:
+// _add_core (_add_call, _add_select_call), _double_core applied k times
+// (_double_call) and _aadd_core (_aadd_call).  The main path adds and
+// doubles 8-128 points a launch (the binary scalar muls of the king's
+// mat-vecs and of the r/s shares, one double and one add-if per scalar
+// bit; Pippenger's window fold, 8-128 points doubled 8-128 times), so such
+// a launch costs the latency of one point's chain of dependent Fq products:
+// 16 (add) or 7 (double) in G1, 48 or 21 in G2, in series on one thread.
+// Here the G lanes of a group compute the independent products of each
+// level of the formula's dependency graph at once (in G2 the three Fq
+// products of each Karatsuba Fq2 product are separate items), so an add is
+// 5 products deep in G1 and 8-10 in G2, a doubling and an affine+affine add
+// 3.  Pippenger's tree level 1 runs the affine+affine add over 2^21-2^22
+// pairs, where it is bound by throughput: there the lanes keep each
+// thread's live state to one product's operands, so no instance needs the
+// 255 registers and spills of a whole point per thread.  The lanes pass
+// operands through shared memory (one slot array per group, synchronised
+// with __syncwarp over the group's lanes).  A group decides the special
+// cases (infinity operands and flags, cond false, P == Q, P == -Q) on
+// values every lane reads, so it never diverges; P == Q runs the doubling
+// program.
 //
-// On the host (g++, csrc/host_core.cpp) the same program runs with the
+// On the host (g++, csrc/host_core.cpp) the same programs run with the
 // lanes looped serially and the carry flag emulated in C, so the CPU tests
 // check the device's algorithm step for step; only the mapping of each
 // primitive below to its PTX instruction is not exercised there.
@@ -165,10 +170,10 @@ ZK_HD Fq<NL> cc_sub(const Fq<NL>& a, const Fq<NL>& b, const FieldParams<NL>& F) 
 // it and no chain carries out of the top word; one masked subtraction of p
 // leaves the canonical residue.
 //
-// Not inlined on the device: the add calls it from 8 places, and 8 inlined
-// copies of its 4 NL^2 chained instructions (about 600 at 12 limbs) leave
-// the kernel's code larger than the instruction cache; one copy, its
-// operands passed by value, runs faster at every batch size.
+// Not inlined on the device: the add's program calls it from 9 places, and
+// that many inlined copies of its 4 NL^2 chained instructions (about 600
+// at 12 limbs) leave the kernel's code larger than the instruction cache;
+// one copy, its operands passed by value, runs faster at every batch size.
 #if defined(__CUDACC__)
 #define ZK_MUL_HD __host__ __device__ __noinline__
 #else
@@ -212,42 +217,58 @@ ZK_MUL_HD Fq<NL> cc_mul(const Fq<NL> a, const Fq<NL> b, const FieldParams<NL>& F
 }
 
 // ---------------------------------------------------------------------------
-// the grouped add
+// the grouped point programs
 // ---------------------------------------------------------------------------
 
-// Lanes per point: 4 in G1 (the widest level has 4 products), 8 in G2 (12
-// Fq products at the widest level, 9 at most of the others).
+// Lanes per point of the complete add and the double: 4 in G1 (the widest
+// level has 4 products in the add, 3 in the double), 8 in G2 (12 and 9 Fq
+// products).
 template <class R>
-constexpr int add_lanes() {
+constexpr int point_lanes() {
     return R::LIMBS16 == 2 * R::NL ? 4 : 8;
 }
 
-// Ring slots of a group's shared array.  The inputs take 0-5; later levels
-// reuse the slots of values no longer read (a step never writes a slot
-// that another item of the same step reads).  Both programs leave the
-// result in (S_X3, S_Y3, S_Z3).
-enum AddSlot : int {
+// Lanes per point of the affine+affine add, whose levels are 2 ring
+// products wide: 2 in G1, 8 in G2 (6 Fq products).
+template <class R>
+constexpr int aadd_lanes() {
+    return R::LIMBS16 == 2 * R::NL ? 2 : 8;
+}
+
+// Ring slots of a group's shared array.  The inputs take 0-5 (P, then Q);
+// later levels reuse the slots of values no longer read (a step never
+// writes a slot that another item of the same step reads).  Every program
+// leaves its result in (S_X1, S_Y1, S_Z1), or in (S_X2, S_Y2, S_Z2) when
+// the result is Q.
+enum Slot : int {
     S_X1, S_Y1, S_Z1, S_X2, S_Y2, S_Z2,
     S_A, S_B, S_C, S_D, S_U1, S_U2, S_S1, S_S2, S_H, S_R, S_H2,
     N_ADD_SLOTS,
     // add: later levels
     S_I = S_A, S_RSQ = S_B, S_ZZ = S_C, S_J = S_D, S_V = S_U2, S_ZH = S_S2,
     S_W = S_A, S_Y3A = S_B, S_SJ = S_H,
-    S_X3 = S_H2, S_Y3 = S_R, S_Z3 = S_C,
-    // doubling (P == Q): A = X^2, B = Y^2, YZ, X + B, E = 3A, C = B^2,
-    // (X + B)^2, F = E^2, W = D - X3, E W
+    // doubling: A = X^2, B = Y^2, YZ, X + B, E = 3A, C = B^2, (X + B)^2,
+    // F = E^2, W = D - X3, E W
     S_DA = S_A, S_DB = S_B, S_DYZ = S_C, S_XB = S_D, S_E = S_U1, S_DC = S_U2,
     S_XB2 = S_S1, S_DF = S_S2, S_DW = S_D, S_EW = S_H,
+    N_DBL_SLOTS,  // the doubling's last slot is S_EW
+    // affine+affine: H = x2 - x1, r = 2 (y2 - y1), 2H, I = (2H)^2, r^2,
+    // J = H I, V = x1 I, W = V - X3, r W, y1 J; its P == Q branch runs the
+    // doubling, so it takes the doubling's slots
+    S_AH = S_A, S_AR = S_B, S_AH2 = S_C, S_AI = S_D, S_ARSQ = S_U1, S_AJ = S_U2,
+    S_AV = S_S1, S_AW = S_S2, S_AY3A = S_A, S_ASJ = S_C,
+    N_AADD_SLOTS = N_DBL_SLOTS,
 };
 
-template <class R>
-struct AddGroup {
+// G lanes sharing one point, over NS ring slots of shared memory.
+template <class R, int G_, int NS>
+struct Group {
     static constexpr int NL = R::NL;
     static constexpr int NC = R::LIMBS16 / (2 * NL);  // Fq coordinates per ring element
-    static constexpr int G = add_lanes<R>();
+    static constexpr int G = G_;
     static constexpr int NR = R::NEG_NR;
     // Fq temporaries of the Karatsuba products, 3 per Fq2 product, 4 at once
-    static constexpr int TMP = N_ADD_SLOTS * NC;
+    static constexpr int TMP = NS * NC;
     static constexpr int FQ_SLOTS = TMP + (NC == 2 ? 12 : 0);
     // words a group's array takes, padded so that the groups of a warp
     // start in different shared-memory banks
@@ -337,9 +358,18 @@ struct AddGroup {
         return acc == 0;
     }
 
-    // (S_X3, S_Y3, S_Z3) = 2 (S_X1, S_Y1, S_Z1): pt_double's dbl-2009-l,
-    // 3 products deep
+    // the n ring slots from k on: the first `ones` of them one, the rest zero
+    ZK_HD void set(int k, int n, int ones) {
+        lin(n, [&](int op, int c) {
+            st(k + op, c, c == 0 && op < ones ? fq_one(F) : fq_zero<NL>());
+        });
+    }
+
+    // (S_X1, S_Y1, S_Z1) doubled in place: pt_double's dbl-2009-l, 3
+    // products deep.  The input is read only by the first two steps, so the
+    // later ones write the result over it.
     ZK_HD void dbl() {
+        static_assert(NS >= N_DBL_SLOTS, "the doubling needs N_DBL_SLOTS slots");
         muls<3>({S_X1, S_Y1, S_Y1}, {S_X1, S_Y1, S_Z1}, {S_DA, S_DB, S_DYZ});
         lin(2, [&](int op, int c) {
             if (op == 0) {
@@ -355,24 +385,25 @@ struct AddGroup {
                 const E d = cc_dbl(
                     cc_sub(cc_sub(ld(S_XB2, c), ld(S_DA, c), F), ld(S_DC, c), F), F);
                 const E x3 = cc_sub(ld(S_DF, c), cc_dbl(d, F), F);
-                st(S_X3, c, x3);
+                st(S_X1, c, x3);
                 st(S_DW, c, cc_sub(d, x3, F));
             } else {
-                st(S_Z3, c, cc_dbl(ld(S_DYZ, c), F));
+                st(S_Z1, c, cc_dbl(ld(S_DYZ, c), F));
             }
         });
         muls<1>({S_E}, {S_DW}, {S_EW});
         lin(1, [&](int, int c) {
             const E c8 = cc_dbl(cc_dbl(cc_dbl(ld(S_DC, c), F), F), F);
-            st(S_Y3, c, cc_sub(ld(S_EW, c), c8, F));
+            st(S_Y1, c, cc_sub(ld(S_EW, c), c8, F));
         });
     }
 
     // P (slots 0-2) + Q (slots 3-5), complete, as fused.py::_add_core
     // computes it: Q at infinity keeps P, P at infinity gives Q, P == Q
     // doubles, P == -Q gives (one, one, zero).  Returns the slot of the
-    // result's X; Y and Z follow it as in (S_X1, ..) or (S_X3, S_Y3, S_Z3).
+    // result's X.
     ZK_HD int add() {
+        static_assert(NS >= N_ADD_SLOTS, "the add needs N_ADD_SLOTS slots");
         if (is_zero(S_Z2)) return S_X1;
         if (is_zero(S_Z1)) return S_X2;
         muls<4>({S_Z1, S_Z2, S_Y1, S_Y2}, {S_Z1, S_Z2, S_Z2, S_Z1}, {S_A, S_B, S_C, S_D});
@@ -390,45 +421,98 @@ struct AddGroup {
             if (is_zero(S_R)) {
                 dbl();
             } else {
-                lin(3, [&](int op, int c) {
-                    const int k = op == 0 ? S_X3 : op == 1 ? S_Y3 : S_Z3;
-                    st(k, c, op < 2 && c == 0 ? fq_one(F) : fq_zero<NL>());
-                });
+                set(S_X1, 3, 2);
             }
-            return S_X3;
+            return S_X1;
         }
         // I = (2H)^2, r^2, Z1 Z2; J = H I, V = U1 I, Z1 Z2 H
         muls<3>({S_H2, S_R, S_Z1}, {S_H2, S_R, S_Z2}, {S_I, S_RSQ, S_ZZ});
         muls<3>({S_H, S_U1, S_ZZ}, {S_I, S_I, S_H}, {S_J, S_V, S_ZH});
-        // X3 = r^2 - J - 2V, W = V - X3, Z3 = 2 Z1 Z2 H
+        // X3 = r^2 - J - 2V, W = V - X3, Z3 = 2 Z1 Z2 H (P is read no more)
         lin(2, [&](int op, int c) {
             if (op == 0) {
                 const E v = ld(S_V, c);
                 const E x3 = cc_sub(cc_sub(ld(S_RSQ, c), ld(S_J, c), F), cc_dbl(v, F), F);
-                st(S_X3, c, x3);
+                st(S_X1, c, x3);
                 st(S_W, c, cc_sub(v, x3, F));
             } else {
-                st(S_Z3, c, cc_dbl(ld(S_ZH, c), F));
+                st(S_Z1, c, cc_dbl(ld(S_ZH, c), F));
             }
         });
         // Y3 = r W - 2 S1 J
         muls<2>({S_R, S_S1}, {S_W, S_J}, {S_Y3A, S_SJ});
         lin(1, [&](int, int c) {
-            st(S_Y3, c, cc_sub(ld(S_Y3A, c), cc_dbl(ld(S_SJ, c), F), F));
+            st(S_Y1, c, cc_sub(ld(S_Y3A, c), cc_dbl(ld(S_SJ, c), F), F));
         });
-        return S_X3;
+        return S_X1;
     }
 
-    // the three coordinates of point `pt` (0: x1.., 1: x2..) at row i from
-    // the 16-bit-limb boundary layout into slots 3 pt .. 3 pt + 2, two
+    // Affine P = (x1, y1) (slots S_X1, S_Y1) + affine Q = (x2, y2) (S_X2,
+    // S_Y2) -> Jacobian, complete, mmadd-2007-bl as fused.py::_aadd_core
+    // computes it: Q at infinity keeps P (Z = 0 if P is at infinity too),
+    // P at infinity gives Q, P == Q doubles (x1, y1, 1), P == -Q gives
+    // (one, one, zero).  Returns the slot of the result's X.
+    ZK_HD int aadd(bool inf1, bool inf2) {
+        static_assert(NS >= N_AADD_SLOTS, "the affine add needs N_AADD_SLOTS slots");
+        if (inf2) {
+            set(S_Z1, 1, inf1 ? 0 : 1);
+            return S_X1;
+        }
+        if (inf1) {
+            set(S_Z2, 1, 1);
+            return S_X2;
+        }
+        // H = x2 - x1 and 2H, r = 2 (y2 - y1)
+        lin(2, [&](int op, int c) {
+            if (op == 0) {
+                const E h = cc_sub(ld(S_X2, c), ld(S_X1, c), F);
+                st(S_AH, c, h);
+                st(S_AH2, c, cc_dbl(h, F));
+            } else {
+                st(S_AR, c, cc_dbl(cc_sub(ld(S_Y2, c), ld(S_Y1, c), F), F));
+            }
+        });
+        if (is_zero(S_AH)) {
+            if (is_zero(S_AR)) {
+                set(S_Z1, 1, 1);
+                dbl();
+            } else {
+                set(S_X1, 3, 2);
+            }
+            return S_X1;
+        }
+        // I = (2H)^2, r^2; J = H I, V = x1 I
+        muls<2>({S_AH2, S_AR}, {S_AH2, S_AR}, {S_AI, S_ARSQ});
+        muls<2>({S_AH, S_X1}, {S_AI, S_AI}, {S_AJ, S_AV});
+        // X3 = r^2 - J - 2V, W = V - X3, Z3 = 2H (x1 is read no more)
+        lin(2, [&](int op, int c) {
+            if (op == 0) {
+                const E v = ld(S_AV, c);
+                const E x3 = cc_sub(cc_sub(ld(S_ARSQ, c), ld(S_AJ, c), F), cc_dbl(v, F), F);
+                st(S_X1, c, x3);
+                st(S_AW, c, cc_sub(v, x3, F));
+            } else {
+                st(S_Z1, c, ld(S_AH2, c));
+            }
+        });
+        // Y3 = r W - 2 y1 J
+        muls<2>({S_AR, S_Y1}, {S_AW, S_AJ}, {S_AY3A, S_ASJ});
+        lin(1, [&](int, int c) {
+            st(S_Y1, c, cc_sub(ld(S_AY3A, c), cc_dbl(ld(S_ASJ, c), F), F));
+        });
+        return S_X1;
+    }
+
+    // the coordinates x, y and, unless it is null, z of row i from the
+    // 16-bit-limb boundary layout into ring slots k, k + 1 (, k + 2), two
     // 32-bit words per item
-    ZK_HD void load(const int32_t* x, const int32_t* y, const int32_t* z, long i, int pt) {
+    ZK_HD void load(const int32_t* x, const int32_t* y, const int32_t* z, int k, long i) {
         constexpr int W = NC * NL;  // words per coordinate
         const long off = i * R::LIMBS16;
-        step(3 * W / 2, [&](int q) {
+        step((z == nullptr ? 2 : 3) * W / 2, [&](int q) {
             const int c = q / (W / 2), w = 2 * (q % (W / 2));
             const int32_t* src = (c == 0 ? x : c == 1 ? y : z) + off + 2 * w;
-            uint32_t* dst = s + (3 * pt + c) * W + w;
+            uint32_t* dst = s + (k + c) * W + w;
 #if defined(__CUDA_ARCH__)
             const int4 v = *reinterpret_cast<const int4*>(src);
 #else
@@ -439,14 +523,13 @@ struct AddGroup {
         });
     }
 
-    // ring slots k, k', k'' (the result of add()) to row i of the outputs
+    // ring slots k, k + 1, k + 2 (a program's result) to row i of the outputs
     ZK_HD void store(int k, int32_t* ox, int32_t* oy, int32_t* oz, long i) {
         constexpr int W = NC * NL;
         const long off = i * R::LIMBS16;
-        const int ks[3] = {k, k == S_X3 ? S_Y3 : k + 1, k == S_X3 ? S_Z3 : k + 2};
         step(3 * W / 2, [&](int q) {
             const int c = q / (W / 2), w = 2 * (q % (W / 2));
-            const uint32_t* src = s + ks[c] * W + w;
+            const uint32_t* src = s + (k + c) * W + w;
             int32_t* dst = (c == 0 ? ox : c == 1 ? oy : oz) + off + 2 * w;
 #if defined(__CUDA_ARCH__)
             *reinterpret_cast<int4*>(dst) =
@@ -462,14 +545,38 @@ struct AddGroup {
     }
 
     // row i: cond ? P + Q : P (cond == nullptr: P + Q)
-    ZK_HD void run(const int32_t* x1, const int32_t* y1, const int32_t* z1, const int32_t* x2,
-                   const int32_t* y2, const int32_t* z2, const uint8_t* cond, int32_t* ox,
-                   int32_t* oy, int32_t* oz, long i) {
+    ZK_HD void run_add(const int32_t* x1, const int32_t* y1, const int32_t* z1,
+                       const int32_t* x2, const int32_t* y2, const int32_t* z2,
+                       const uint8_t* cond, int32_t* ox, int32_t* oy, int32_t* oz, long i) {
         const bool on = cond == nullptr || cond[i];
-        load(x1, y1, z1, i, 0);
-        if (on) load(x2, y2, z2, i, 1);
+        load(x1, y1, z1, S_X1, i);
+        if (on) load(x2, y2, z2, S_X2, i);
         store(on ? add() : S_X1, ox, oy, oz, i);
     }
+
+    // row i doubled k times, kept in the slots between the doublings
+    ZK_HD void run_double(const int32_t* x, const int32_t* y, const int32_t* z, int32_t* ox,
+                          int32_t* oy, int32_t* oz, long i, int k) {
+        load(x, y, z, S_X1, i);
+        for (int j = 0; j < k; j++) dbl();
+        store(S_X1, ox, oy, oz, i);
+    }
+
+    // row i: affine (x1, y1) + affine (x2, y2) with their infinity flags
+    ZK_HD void run_aadd(const int32_t* x1, const int32_t* y1, const int32_t* x2,
+                        const int32_t* y2, const uint8_t* inf1, const uint8_t* inf2,
+                        int32_t* ox, int32_t* oy, int32_t* oz, long i) {
+        load(x1, y1, nullptr, S_X1, i);
+        load(x2, y2, nullptr, S_X2, i);
+        store(aadd(inf1[i] != 0, inf2[i] != 0), ox, oy, oz, i);
+    }
 };
+
+template <class R>
+using AddGroup = Group<R, point_lanes<R>(), N_ADD_SLOTS>;
+template <class R>
+using DoubleGroup = Group<R, point_lanes<R>(), N_DBL_SLOTS>;
+template <class R>
+using AaddGroup = Group<R, aadd_lanes<R>(), N_AADD_SLOTS>;
 
 }  // namespace zk

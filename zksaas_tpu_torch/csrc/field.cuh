@@ -2,10 +2,10 @@
 // the g++ host build used by the CPU tests (host_core.cpp).
 //
 // Replaces the in-kernel limb library of the JAX package
-// (zksaas_tpu/fields/kernel_lib.py::KernelField), the point cores of
-// zksaas_tpu/curves/fused.py (_double_core, _add_core, _aadd_core,
-// _madd_core), its Fermat inverse (_finv_call) and the digit passes of the
-// key sort (zksaas_tpu/fields/sortperm.py).
+// (zksaas_tpu/fields/kernel_lib.py::KernelField), the mixed add's point
+// core of zksaas_tpu/curves/fused.py (_madd_core; the other cores are the
+// grouped programs of add_group.cuh), its Fermat inverse (_finv_call) and
+// the digit passes of the key sort (zksaas_tpu/fields/sortperm.py).
 //
 // An Fq element is NL little-endian 32-bit limbs in Montgomery form: NL = 8
 // for BN254's Fq and every scalar field (256-bit), NL = 12 for the BLS12
@@ -253,10 +253,10 @@ struct RingFq2 {
 };
 
 // ---------------------------------------------------------------------------
-// a = 0 Jacobian point formulas (zksaas_tpu/curves/fused.py::_double_core,
-// ::_aadd_core, ::_madd_core; the complete add, ::_add_core, is the grouped
-// program of add_group.cuh); the special cases are branches here instead of
-// selects
+// a = 0 Jacobian point formulas of the mixed add (zksaas_tpu/curves/
+// fused.py::_madd_core, with ::_double_core for its P == Q case; the complete
+// add, the k-fold double and the affine+affine add are the grouped programs
+// of add_group.cuh); the special cases are branches here instead of selects
 // ---------------------------------------------------------------------------
 
 template <class R>
@@ -278,7 +278,7 @@ ZK_HD void pt_double(typename R::E& X, typename R::E& Y, typename R::E& Z,
     Z = Z3;
 }
 
-// The part the adds share, from H = U2 - U1 and rr = 2 (S2 - S1):
+// The mixed add's chord, from H = U2 - U1 and rr = 2 (S2 - S1):
 // I = (2H)^2, J = H I, V = U1 I, X3 = rr^2 - J - 2V, Y3 = rr (V - X3) - 2 S1 J.
 template <class R>
 ZK_HD void pt_chord(const typename R::E& H, const typename R::E& rr, const typename R::E& U1,
@@ -290,47 +290,6 @@ ZK_HD void pt_chord(const typename R::E& H, const typename R::E& rr, const typen
     E V = R::mul(U1, I, F);
     X3 = R::sub(R::sub(R::sqr(rr, F), J, F), R::dbl(V, F), F);
     Y3 = R::sub(R::mul(rr, R::sub(V, X3, F), F), R::dbl(R::mul(S1, J, F), F), F);
-}
-
-// Affine (X1, Y1) + affine (X2, Y2) -> Jacobian (X3, Y3, Z3), complete,
-// mmadd-2007-bl (zksaas_tpu/curves/fused.py::_aadd_core): Q at infinity
-// keeps P (with Z = 0 if P is at infinity too), P at infinity gives Q,
-// P == Q doubles (X1, Y1, 1), P == -Q gives (one, one, zero).
-template <class R>
-ZK_HD void pt_aadd(const typename R::E& X1, const typename R::E& Y1, bool inf1,
-                   const typename R::E& X2, const typename R::E& Y2, bool inf2,
-                   typename R::E& X3, typename R::E& Y3, typename R::E& Z3,
-                   const typename R::P& F) {
-    typedef typename R::E E;
-    if (inf2) {
-        X3 = X1;
-        Y3 = Y1;
-        Z3 = inf1 ? R::zero() : R::one(F);
-        return;
-    }
-    if (inf1) {
-        X3 = X2;
-        Y3 = Y2;
-        Z3 = R::one(F);
-        return;
-    }
-    E H = R::sub(X2, X1, F);
-    E rr = R::dbl(R::sub(Y2, Y1, F), F);
-    if (R::is_zero(H)) {
-        if (R::is_zero(rr)) {
-            X3 = X1;
-            Y3 = Y1;
-            Z3 = R::one(F);
-            pt_double<R>(X3, Y3, Z3, F);
-        } else {
-            X3 = R::one(F);
-            Y3 = R::one(F);
-            Z3 = R::zero();
-        }
-        return;
-    }
-    pt_chord<R>(H, rr, X1, Y1, X3, Y3, F);
-    Z3 = R::dbl(H, F);
 }
 
 // (X1, Y1, Z1) += affine (x2, y2), complete, Q never at infinity

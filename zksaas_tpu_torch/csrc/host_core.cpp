@@ -14,34 +14,15 @@
 
 using namespace zk;
 
-// The grouped add's lane program (add_group.cuh), one point after the
-// other, each step's items (the lanes' work) in a serial loop.
-template <class R>
-static void add_loop(const int32_t* x1, const int32_t* y1, const int32_t* z1,
-                     const int32_t* x2, const int32_t* y2, const int32_t* z2,
-                     const uint8_t* cond, int32_t* ox, int32_t* oy, int32_t* oz, long n,
-                     const uint32_t* params) {
-    typename R::P F = params_from<R::NL>(params);
-    std::vector<uint32_t> slots(AddGroup<R>::WORDS);
-    AddGroup<R> g{slots.data(), F, 0, 0};
-    for (long i = 0; i < n; i++) g.run(x1, y1, z1, x2, y2, z2, cond, ox, oy, oz, i);
-}
-
-template <class R>
-static void double_loop(const int32_t* x, const int32_t* y, const int32_t* z, int32_t* ox,
-                        int32_t* oy, int32_t* oz, long n, int k, const uint32_t* params) {
-    typename R::P F = params_from<R::NL>(params);
-    for (long i = 0; i < n; i++) {
-        const long off = i * R::LIMBS16;
-        typename R::E X, Y, Z;
-        load16(x + off, X);
-        load16(y + off, Y);
-        load16(z + off, Z);
-        for (int j = 0; j < k; j++) pt_double<R>(X, Y, Z, F);
-        store16(ox + off, X);
-        store16(oy + off, Y);
-        store16(oz + off, Z);
-    }
+// A grouped program of add_group.cuh, one row after the other, each step's
+// items (the lanes' work) in a serial loop: fn(group, row).
+template <class Grp, class Fn>
+static int group_loop(long n, const uint32_t* params, Fn&& fn) {
+    typename Grp::P F = params_from<Grp::NL>(params);
+    std::vector<uint32_t> slots(Grp::WORDS);
+    Grp g{slots.data(), F, 0, 0};
+    for (long i = 0; i < n; i++) fn(g, i);
+    return 0;
 }
 
 template <class R>
@@ -54,25 +35,6 @@ static void ring_loop(const int32_t* a, const int32_t* b, int32_t* out, long n,
         load16(a + off, x);
         if (b != nullptr) load16(b + off, y);
         store16(out + off, b != nullptr ? R::mul(x, y, F) : R::inv(x, F));
-    }
-}
-
-template <class R>
-static void aadd_loop(const int32_t* x1, const int32_t* y1, const int32_t* x2,
-                      const int32_t* y2, const uint8_t* inf1, const uint8_t* inf2, int32_t* ox,
-                      int32_t* oy, int32_t* oz, long n, const uint32_t* params) {
-    typename R::P F = params_from<R::NL>(params);
-    for (long i = 0; i < n; i++) {
-        const long off = i * R::LIMBS16;
-        typename R::E X1, Y1, X2, Y2, X3, Y3, Z3;
-        load16(x1 + off, X1);
-        load16(y1 + off, Y1);
-        load16(x2 + off, X2);
-        load16(y2 + off, Y2);
-        pt_aadd<R>(X1, Y1, inf1[i] != 0, X2, Y2, inf2[i] != 0, X3, Y3, Z3, F);
-        store16(ox + off, X3);
-        store16(oy + off, Y3);
-        store16(oz + off, Z3);
     }
 }
 
@@ -138,8 +100,9 @@ int zkc_point_add_if(int nl, int nr, int ncoord, const int32_t* x1, const int32_
                      const int32_t* z2, const uint8_t* cond, int32_t* ox, int32_t* oy,
                      int32_t* oz, long n, const uint32_t* params) {
     return with_ring(nl, nr, ncoord, [&](auto r) {
-        add_loop<decltype(r)>(x1, y1, z1, x2, y2, z2, cond, ox, oy, oz, n, params);
-        return 0;
+        return group_loop<AddGroup<decltype(r)>>(n, params, [&](auto& g, long i) {
+            g.run_add(x1, y1, z1, x2, y2, z2, cond, ox, oy, oz, i);
+        });
     });
 }
 
@@ -147,8 +110,9 @@ int zkc_point_double(int nl, int nr, int ncoord, const int32_t* x, const int32_t
                      const int32_t* z, int32_t* ox, int32_t* oy, int32_t* oz, long n, int k,
                      const uint32_t* params) {
     return with_ring(nl, nr, ncoord, [&](auto r) {
-        double_loop<decltype(r)>(x, y, z, ox, oy, oz, n, k, params);
-        return 0;
+        return group_loop<DoubleGroup<decltype(r)>>(n, params, [&](auto& g, long i) {
+            g.run_double(x, y, z, ox, oy, oz, i, k);
+        });
     });
 }
 
@@ -173,8 +137,9 @@ int zkc_point_aadd(int nl, int nr, int ncoord, const int32_t* x1, const int32_t*
                    const uint8_t* inf2, int32_t* ox, int32_t* oy, int32_t* oz, long n,
                    const uint32_t* params) {
     return with_ring(nl, nr, ncoord, [&](auto r) {
-        aadd_loop<decltype(r)>(x1, y1, x2, y2, inf1, inf2, ox, oy, oz, n, params);
-        return 0;
+        return group_loop<AaddGroup<decltype(r)>>(n, params, [&](auto& g, long i) {
+            g.run_aadd(x1, y1, x2, y2, inf1, inf2, ox, oy, oz, i);
+        });
     });
 }
 

@@ -25,16 +25,16 @@
 //   Bound: 12-25 Montgomery products per element (x3 in G2) against
 //   6-9 coordinates moved, so these are bound by 32-bit integer multiply
 //   throughput, not memory.
-//   Design of the add and add-if (one kernel, add_group.cuh): the main
-//   path adds 8-24 points a launch, so a launch costs one point's latency;
-//   a group of 4 lanes (G1) or 8 (G2) shares each point and computes the
-//   independent Montgomery products of each level of the formula at once,
-//   on PTX carry chains, passing operands through shared memory; each lane
-//   holds one product's operands, so no instance spills.  The special
-//   cases are decided once per group, so a group never diverges.
-//   The double: one thread per point, the whole formula in registers,
-//   k doublings in one launch; __launch_bounds__(128) lets the G2 formula
-//   spill to L1 instead of failing.
+//   Design (the grouped programs of add_group.cuh): the main path adds
+//   and doubles 8-128 points a launch (the binary scalar muls; the window
+//   fold doubles 8-128 points 8-128 times), so a launch costs one point's
+//   latency; a group of 4 lanes (G1) or 8 (G2) shares each point and
+//   computes the independent Montgomery products of each level of the
+//   formula at once, on PTX carry chains, passing operands through shared
+//   memory; each lane holds one product's operands, so no instance
+//   spills.  The special cases are decided once per group, so a group
+//   never diverges.  The double keeps its point in the group's slots over
+//   its k doublings, 3 product levels each.
 //
 // Kernels 5-9 run the bucket-Pippenger MSM (curves/pippenger.py):
 //
@@ -57,8 +57,12 @@
 //   1 over the sorted affine leaves.  Bound: memory by count (4
 //   coordinates and 2 flags in, 3 out, against 6 products per lane, x3
 //   in G2), though the formula's dependent products keep it well above
-//   that.  Design: as the complete add, the special cases (infinity flags,
-//   P == Q, P == -Q) are branches taken only by the lanes that need them.
+//   that.  Design: the grouped affine+affine add of add_group.cuh, 3
+//   product levels of 2 ring products, 2 lanes a point in G1 and 8 in G2
+//   (one Fq product each a level), so a thread holds one product's
+//   operands instead of a whole point (255 registers and spills at 12
+//   limbs before); the special cases (infinity flags, P == Q, P == -Q)
+//   are decided once per group.
 //
 // Kernel 8, point_madd_if: replaces fused.py::_madd_select_call
 //   (pmadd_if), the level-0 suffix queries.  Bound and design as the

@@ -56,46 +56,61 @@ __device__ __forceinline__ void vstore(int32_t* dst, const Fq2<NL>& a) {
     vstore(dst + 2 * NL, a.c1);
 }
 
-// Kernels 2-3: cond ? P + Q : P (cond == nullptr: P + Q), one group of
-// add_lanes<R>() lanes per point running AddGroup<R>::run (add_group.cuh);
-// each group's slots are its part of the block's dynamic shared memory.
-constexpr int ADD_THREADS = 128;
+// Kernels 2-4 and 7, the grouped point programs of add_group.cuh: one group
+// of Grp::G lanes per point (row); each group's slots are its part of the
+// block's dynamic shared memory.
+constexpr int GROUP_THREADS = 128;
 
+// This thread's group and the row it works on (i >= n: none).
+template <class Grp>
+__device__ __forceinline__ Grp block_group(const typename Grp::P& F, long& i) {
+    extern __shared__ int4 group_smem[];
+    constexpr int G = Grp::G;
+    const int grp = threadIdx.x / G, lane = threadIdx.x % G;
+    i = (long)blockIdx.x * (GROUP_THREADS / G) + grp;
+    const unsigned mask = ((G == 32 ? 0u : 1u << G) - 1u) << ((threadIdx.x & 31) / G * G);
+    return Grp{reinterpret_cast<uint32_t*>(group_smem) + grp * Grp::WORDS, F, lane, mask};
+}
+
+// Kernels 2-3: cond ? P + Q : P (cond == nullptr: P + Q).
 template <class R>
-__global__ void __launch_bounds__(ADD_THREADS)
+__global__ void __launch_bounds__(GROUP_THREADS)
 add_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
            const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
            const int32_t* __restrict__ y2, const int32_t* __restrict__ z2,
            const uint8_t* __restrict__ cond, int32_t* __restrict__ ox,
            int32_t* __restrict__ oy, int32_t* __restrict__ oz, long n, typename R::P F) {
-    extern __shared__ int4 add_smem[];
-    typedef AddGroup<R> Grp;
-    constexpr int G = Grp::G;
-    const int grp = threadIdx.x / G, lane = threadIdx.x % G;
-    const long i = (long)blockIdx.x * (ADD_THREADS / G) + grp;
+    long i;
+    AddGroup<R> g = block_group<AddGroup<R>>(F, i);
     if (i >= n) return;  // the whole group: the others' barriers do not wait on it
-    const unsigned mask = ((G == 32 ? 0u : 1u << G) - 1u) << ((threadIdx.x & 31) / G * G);
-    Grp g{reinterpret_cast<uint32_t*>(add_smem) + grp * Grp::WORDS, F, lane, mask};
-    g.run(x1, y1, z1, x2, y2, z2, cond, ox, oy, oz, i);
+    g.run_add(x1, y1, z1, x2, y2, z2, cond, ox, oy, oz, i);
 }
 
+// Kernel 4: k doublings.
 template <class R>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(GROUP_THREADS)
 double_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
               const int32_t* __restrict__ z, int32_t* __restrict__ ox,
               int32_t* __restrict__ oy, int32_t* __restrict__ oz, long n, int k,
               typename R::P F) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    long i;
+    DoubleGroup<R> g = block_group<DoubleGroup<R>>(F, i);
     if (i >= n) return;
-    const long off = i * R::LIMBS16;
-    typename R::E X, Y, Z;
-    vload(x + off, X);
-    vload(y + off, Y);
-    vload(z + off, Z);
-    for (int j = 0; j < k; j++) pt_double<R>(X, Y, Z, F);
-    vstore(ox + off, X);
-    vstore(oy + off, Y);
-    vstore(oz + off, Z);
+    g.run_double(x, y, z, ox, oy, oz, i, k);
+}
+
+// Kernel 7: affine + affine -> Jacobian, with infinity flags.
+template <class R>
+__global__ void __launch_bounds__(GROUP_THREADS)
+aadd_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
+            const int32_t* __restrict__ x2, const int32_t* __restrict__ y2,
+            const uint8_t* __restrict__ inf1, const uint8_t* __restrict__ inf2,
+            int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz,
+            long n, typename R::P F) {
+    long i;
+    AaddGroup<R> g = block_group<AaddGroup<R>>(F, i);
+    if (i >= n) return;
+    g.run_aadd(x1, y1, x2, y2, inf1, inf2, ox, oy, oz, i);
 }
 
 template <class R>
@@ -121,27 +136,6 @@ ring_inv_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out, long n
     typename R::E x;
     vload(a + off, x);
     vstore(out + off, R::inv(x, F));
-}
-
-template <class R>
-__global__ void __launch_bounds__(THREADS)
-aadd_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
-            const int32_t* __restrict__ x2, const int32_t* __restrict__ y2,
-            const uint8_t* __restrict__ inf1, const uint8_t* __restrict__ inf2,
-            int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz,
-            long n, typename R::P F) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const long off = i * R::LIMBS16;
-    typename R::E X1, Y1, X2, Y2, X3, Y3, Z3;
-    vload(x1 + off, X1);
-    vload(y1 + off, Y1);
-    vload(x2 + off, X2);
-    vload(y2 + off, Y2);
-    pt_aadd<R>(X1, Y1, inf1[i] != 0, X2, Y2, inf2[i] != 0, X3, Y3, Z3, F);
-    vstore(ox + off, X3);
-    vstore(oy + off, Y3);
-    vstore(oz + off, Z3);
 }
 
 template <class R>
@@ -174,25 +168,30 @@ madd_if_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
 // cudaGetLastError()
 // ---------------------------------------------------------------------------
 
+// A grouped kernel over n rows: GROUP_THREADS / G rows a block.
+template <class Grp, class... KA, class... A>
+int launch_groups(void (*kernel)(KA...), long n, cudaStream_t s, A... args) {
+    constexpr int per_block = GROUP_THREADS / Grp::G;
+    constexpr size_t smem = per_block * Grp::WORDS * sizeof(uint32_t);
+    static_assert(smem <= 48 * 1024, "a block's slots must fit the default shared memory");
+    kernel<<<blocks(n, per_block), GROUP_THREADS, smem, s>>>(args...);
+    return (int)cudaGetLastError();
+}
+
 template <class R>
 int launch_add(const int32_t* x1, const int32_t* y1, const int32_t* z1, const int32_t* x2,
                const int32_t* y2, const int32_t* z2, const uint8_t* cond, int32_t* ox,
                int32_t* oy, int32_t* oz, long n, const uint32_t* params, cudaStream_t s) {
-    constexpr int per_block = ADD_THREADS / AddGroup<R>::G;
-    constexpr size_t smem = per_block * AddGroup<R>::WORDS * sizeof(uint32_t);
-    static_assert(smem <= 48 * 1024, "the add's slots must fit the default shared memory");
-    add_kernel<R><<<blocks(n, per_block), ADD_THREADS, smem, s>>>(
-        x1, y1, z1, x2, y2, z2, cond, ox, oy, oz, n, params_from<R::NL>(params));
-    return (int)cudaGetLastError();
+    return launch_groups<AddGroup<R>>(&add_kernel<R>, n, s, x1, y1, z1, x2, y2, z2, cond, ox,
+                                      oy, oz, n, params_from<R::NL>(params));
 }
 
 template <class R>
 int launch_double(const int32_t* x, const int32_t* y, const int32_t* z, int32_t* ox,
                   int32_t* oy, int32_t* oz, long n, int k, const uint32_t* params,
                   cudaStream_t s) {
-    double_kernel<R><<<blocks(n, THREADS), THREADS, 0, s>>>(x, y, z, ox, oy, oz, n, k,
-                                                            params_from<R::NL>(params));
-    return (int)cudaGetLastError();
+    return launch_groups<DoubleGroup<R>>(&double_kernel<R>, n, s, x, y, z, ox, oy, oz, n, k,
+                                         params_from<R::NL>(params));
 }
 
 template <class R>
@@ -215,9 +214,8 @@ template <class R>
 int launch_aadd(const int32_t* x1, const int32_t* y1, const int32_t* x2, const int32_t* y2,
                 const uint8_t* inf1, const uint8_t* inf2, int32_t* ox, int32_t* oy,
                 int32_t* oz, long n, const uint32_t* params, cudaStream_t s) {
-    aadd_kernel<R><<<blocks(n, THREADS), THREADS, 0, s>>>(x1, y1, x2, y2, inf1, inf2, ox, oy,
-                                                          oz, n, params_from<R::NL>(params));
-    return (int)cudaGetLastError();
+    return launch_groups<AaddGroup<R>>(&aadd_kernel<R>, n, s, x1, y1, x2, y2, inf1, inf2, ox,
+                                       oy, oz, n, params_from<R::NL>(params));
 }
 
 template <class R>

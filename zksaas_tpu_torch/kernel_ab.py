@@ -1,4 +1,5 @@
-"""The point add, add-if, double and key sort of two checkouts, timed on one card.
+"""The point add, add-if, double, affine+affine add and key sort of two
+checkouts, timed on one card.
 
   python -m zksaas_tpu_torch.kernel_ab --ref DIR [--out FILE]
 
@@ -10,17 +11,22 @@ between the two runs of one checkout.  Each run times, for every
 coordinate ring (G1 and G2 of BN254, BLS12-381, BLS12-377):
 
 * point_add_if, point_add and point_double (k = 1) at 16 points, the main
-  path's batch (the king's mat-vec of 2 x 8 products), as device time: the
-  launches are captured in one CUDA graph and replayed, so the host's launch
-  time between them does not count;
-* point_add_if and point_add at 2^18 points (G1) or 2^16 (G2), the shapes
-  of PERF.md's kernel table, with CUDA events;
+  path's batch (the king's mat-vec of 2 x 8 products), and point_double at
+  8 points with k = 128, the last step of Pippenger's window fold, as
+  device time: the launches are captured in one CUDA graph and replayed, so
+  the host's launch time between them does not count;
+* point_add_if, point_add and point_double (k = 1 and 4) at 2^18 points
+  (G1) or 2^16 (G2), the shapes of PERF.md's kernel table, with CUDA
+  events;
+* point_aadd at 2^21 pairs (Pippenger's tree level 1 in the path's
+  2^14-chunk MSMs) and 2^22 (the 2^15-chunk h-query MSM), with P == Q,
+  P == -Q and infinity flags mixed in, with CUDA events;
 
 and the key sort over 8 rows of 2^19 and of 2^20 keys beside torch.sort on
 the same keys, with the sort's device time per kernel name from
-torch.profiler.  The inputs are chip_smoke.test_points / random keys from
-fixed seeds, the same in every run.  The empty kernel's graph time
-(this checkout only) is the launch floor.  Prints the card's name and
+torch.profiler.  The inputs are chip_smoke.test_points / affine_pairs /
+random keys from fixed seeds, the same in every run.  The empty kernel's
+graph time (this checkout only) is the launch floor.  Prints the card's name and
 power limit and one JSON line: every run's numbers under its checkout.
 Needs a CUDA device.  Imports nothing of JAX.
 """
@@ -106,7 +112,7 @@ def _worker(root: str) -> dict:
     sys.path.insert(0, root)
     import torch
 
-    from chip_smoke import cuda_ms, test_points
+    from chip_smoke import affine_pairs, cuda_ms, test_points
     from zksaas_tpu_torch import kernels
     from zksaas_tpu_torch.curves import point_ops as po
     from zksaas_tpu_torch.curves.curve import CURVE_FAMILIES, curve_g1, curve_g2
@@ -124,10 +130,23 @@ def _worker(root: str) -> dict:
             res[f"{C.name} add_if n=16"] = graph_ms(lambda: po.point_add_if(spec, nc, P, Q, cond))
             res[f"{C.name} add n=16"] = graph_ms(lambda: po.point_add(spec, nc, P, Q))
             res[f"{C.name} double n=16"] = graph_ms(lambda: po.point_double(spec, nc, P, 1))
+            P8 = tuple(c[:8].contiguous() for c in P)
+            res[f"{C.name} double n=8 k=128"] = graph_ms(
+                lambda: po.point_double(spec, nc, P8, 128), 20)
             P, Q, cond, _ = test_points(C, 1 << lg, gen)
             res[f"{C.name} add_if n=2^{lg}"] = cuda_ms(lambda: po.point_add_if(spec, nc, P, Q, cond), 10)
             res[f"{C.name} add n=2^{lg}"] = cuda_ms(lambda: po.point_add(spec, nc, P, Q), 10)
+            for k in (1, 4):
+                res[f"{C.name} double n=2^{lg} k={k}"] = cuda_ms(
+                    lambda: po.point_double(spec, nc, P, k), 10)
             del P, Q, cond
+            for la in (21, 22):
+                P, Q, kind = affine_pairs(C, 1 << la, gen)
+                P, Q = tuple(c.contiguous() for c in P[:2]), tuple(c.contiguous() for c in Q[:2])
+                inf1, inf2 = (kind == 3) | (kind == 5), (kind == 4) | (kind == 5)
+                res[f"{C.name} aadd n=2^{la}"] = cuda_ms(
+                    lambda: po.point_aadd(spec, nc, P, Q, inf1, inf2), 5)
+                del P, Q, inf1, inf2
             torch.cuda.empty_cache()
     gen = torch.Generator().manual_seed(7)
     for lg in (19, 20):

@@ -1,8 +1,8 @@
 """Build, load and count the port's hand-written kernels.
 
 The CUDA sources live in csrc/: field.cuh (the arithmetic), add_group.cuh
-(the complete add as a program for a group of lanes, on carry-chain
-arithmetic), kernels.cuh (the point and ring kernels as templates over the
+(the complete add, the k-fold double and the affine+affine add as programs
+for a group of lanes, on carry-chain arithmetic), kernels.cuh (the point and ring kernels as templates over the
 coordinate ring),
 kernels.cu (the C interface, montmul and the sort) and one ring_*.cu per
 coordinate ring.  They are compiled at first use with nvcc for sm_90a, one

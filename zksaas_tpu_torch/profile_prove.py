@@ -111,18 +111,33 @@ def _ptxas() -> list:
         _, err = p.communicate(timeout=900)
         if p.returncode != 0:
             raise RuntimeError(err[-4000:])
-        for line in err.splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                rows.append({"kernel": _kernel_label(m.group(1))})
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
-                          line)
-            if m and rows:
-                rows[-1].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
-                                spill_loads=int(m.group(3)))
-            m = re.search(r"Used (\d+) registers", line)
-            if m and rows:
-                rows[-1]["registers"] = int(m.group(1))
+        rows += _parse_ptxas(err)
+    return rows
+
+
+def _parse_ptxas(err: str) -> list:
+    """One row per entry function of one `-Xptxas -v` log: its label,
+    registers, and its own stack frame and spill bytes (not those of a
+    non-inlined function it calls, which ptxas lists under that function's
+    name)."""
+    rows = []
+    entry = props = None
+    for line in err.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            rows.append({"kernel": _kernel_label(entry)})
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and rows and props == entry:
+            rows[-1].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows:
+            rows[-1]["registers"] = int(m.group(1))
     return rows
 
 
