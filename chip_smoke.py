@@ -13,9 +13,13 @@
    at 16 points, the batch of the prove's binary scalar muls, and the
    double at the window fold's 8 points x 128 doublings and 128 x 8, timed
    as device time in a CUDA graph beside the empty kernel's (the launch
-   floor); the key sort also at 8 x 2^19 keys and on edge cases (one row
-   of 256 keys, rows shorter than a tile, all keys equal, all with bit 31
-   set, a constant high byte);
+   floor); ring_mul at 2^18, 2^17, 8,192 and 1,024 elements and at a
+   ragged 3,001 and 2^17 + 1, ring_inv at 1,024, both in a CUDA graph and
+   on 0, 1, the Montgomery one and p - 1 (in Fq2 beside 0) among random
+   elements; the key sort also at 8 x 2^19 keys and on edge cases (one
+   row of 256 keys, rows shorter than a tile, all keys equal, all with bit
+   31 set, a constant high byte).  Each check's inputs come from a
+   generator seeded by its kernel, ring and shape;
 4. runs the bucket-Pippenger MSM (curves/pippenger.py::msm_best) on the
    card for one party's 2^15 BN254 G1 points and holds its affine result
    against scalar_mul_w4 + sum on the same card;
@@ -23,9 +27,10 @@
    SHA-256 circuit, m = 2^16, 8 parties, l = 2), first over BN254, then
    over BLS12-381, each with every launch count set to 0 just before and
    read just after, and asserts that the pairing check passes, that every
-   kernel launched, in the whole run and in the timed prove, and that the
+   kernel launched, in the whole run and in the timed prove, that the
    BLS12-381 prove went through the BLS12-381 instance of every point and
-   ring kernel;
+   ring kernel, and that the prove launched ring_mul 128 and ring_inv 5
+   times;
 6. prints the kernels line and, last, the device line.
 
 Exits non-zero, before printing any result, when no CUDA device is present
@@ -39,6 +44,7 @@ import os
 import subprocess
 import sys
 import time
+import zlib
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -55,10 +61,29 @@ PEAK_OPS = None
 MULS_ADD, MULS_DBL_BRANCH, MULS_DOUBLE = 16, 15, 7
 # Montgomery products per lane of the new point kernels' branches
 MULS_AADD, MULS_MADD, MULS_MADD_NEG = 6, 11, 4
+# The safegcd inverse (csrc/field.cuh::FqInverse): int32 operations of one
+# branch-free divstep (libsecp256k1's modinv32 step), and 32-bit multiplies
+# a batch of 30 spends per 30-bit limb on its matrix (4 wide products for
+# f, g and 6 for d, e, two multiplies each)
+OPS_DIVSTEP, MULS_BATCH_LIMB = 28, 20
+# ring_mul widths of the main path: the affine conversion's 2^18-point
+# products, the inversion tree's widest level and two of its narrow ones
+# near the root (1,024); and a ragged width on each side of the kernel's
+# choice of layout (csrc/kernels.cuh::launch_ring_mul)
+RING_MUL_WIDTHS = (1 << 18, 1 << 17, 8192, 1024, 3001, (1 << 17) + 1)
+# launches of ring_mul and ring_inv in one flagship prove (four G1 MSMs and
+# one G2 MSM; both curves run the same windows)
+PROVE_RING_MUL, PROVE_RING_INV = 128, 5
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def seeded(*key):
+    """A generator seeded by a check's kernel, ring and shape, so that its
+    inputs do not depend on which checks ran before it."""
+    return torch.Generator().manual_seed(zlib.crc32(repr(key).encode()))
 
 
 def cuda_ms(fn, iters):
@@ -91,12 +116,13 @@ def ops_per_mul(spec):
     return 2 * (2 * nl * nl) + nl
 
 
-def check_montmul(spec, n, gen):
+def check_montmul(spec, n):
     from zksaas_tpu_torch import kernels
     from zksaas_tpu_torch.fields.field import field
     from zksaas_tpu_torch.fields.montmul import montmul, montmul_plain
 
     F = field(spec)
+    gen = seeded("montmul", spec.name, n)
     a, b = F.rand(gen, (n,), "cuda"), F.rand(gen, (n,), "cuda")
     saved = kernels.save_launches()
     out = montmul(spec, a, b)
@@ -162,7 +188,7 @@ def test_points(curve, n, gen, dev="cuda"):
     return P, Q, cond, dict(pin=pin, qin=qin, same=same, neg=neg)
 
 
-def check_points(curve, n, gen, small=False):
+def check_points(curve, n, small=False):
     """The add, add-if and double(k) over n points with every special case;
     small: the main path's batch, timed as device time in a CUDA graph, the
     double at k = 1, and at the window fold's shapes: 8 points doubled 128
@@ -171,7 +197,7 @@ def check_points(curve, n, gen, small=False):
     from zksaas_tpu_torch.curves import point_ops as po
 
     spec, nc = curve.spec, curve._ncoord
-    P, Q, cond, cases = test_points(curve, n, gen)
+    P, Q, cond, cases = test_points(curve, n, seeded("points", curve.name, n))
     ring_muls = 1 if nc == 1 else 3
     opm = ops_per_mul(spec)
     coord = spec.nlimbs * nc * 4  # bytes per coordinate
@@ -211,7 +237,8 @@ def check_points(curve, n, gen, small=False):
     doubles = [(P, tag, 1)] if small else [(P, tag, 1), (P, tag, 4)]
     if small:
         for m, k in ((8, 128), (128, 8)):
-            doubles.append((test_points(curve, m, gen)[0], f"{curve.name} n={m}", k))
+            doubles.append((test_points(curve, m, seeded("double", curve.name, m, k))[0],
+                            f"{curve.name} n={m}", k))
     for D, dtag, k in doubles:
         m = D[0].shape[0]
         out = po.point_double(spec, nc, D, k)
@@ -227,46 +254,104 @@ def check_points(curve, n, gen, small=False):
     return rows
 
 
-def check_ring(curve, n, gen):
-    """ring_mul at n and ring_inv at the inversion tree's root width 1,024,
-    zeros among the inputs."""
+def special_ring_elements(curve, n, gen):
+    """n random ring elements, the first of them 0, the integer 1, the
+    Montgomery one and p - 1 (in Fq2 each beside 0 on either side), and in
+    Fq2 elements with one random coordinate and the other 0."""
+    spec, nc = curve.spec, curve._ncoord
+    a = curve.R.F.rand(gen, (n,) + curve.R.coord_shape[:-1], "cuda")
+    limbs = lambda x: torch.tensor([(x >> (16 * i)) & 0xFFFF for i in range(spec.nlimbs)],
+                                   dtype=torch.int32, device="cuda")
+    vals = [limbs(v) for v in (0, 1, spec.r_mod_p, spec.p - 1)]
+    if nc == 1:
+        for i, v in enumerate(vals):
+            a[i] = v
+    else:
+        zero = torch.zeros_like(vals[0])
+        for i, v in enumerate(vals):
+            a[2 * i] = torch.stack([v, zero])
+            a[2 * i + 1] = torch.stack([zero, v])
+        a[8:12, 0] = 0
+        a[12:16, 1] = 0
+    return a
+
+
+def divsteps(p, x):
+    """The half-delta divsteps that take g = x to 0 from f = p
+    (csrc/field.cuh::FqInverse)."""
+    zeta, f, g, n = -1, p, x, 0
+    while g:
+        if g & 1:
+            zeta, f, g = (-zeta - 2, g, (g - f) >> 1) if zeta < 0 else (zeta - 1, f, (g + f) >> 1)
+        else:
+            zeta, g = zeta - 1, g >> 1
+        n += 1
+    return n
+
+
+def inv_ops(curve, x):
+    """int32 operations the safegcd inverse needs for these inputs: each
+    element's own divsteps and their matrices (the element FqInverse
+    inverts: x in Fq, its norm in Fq2), and the Montgomery products around
+    them (one by R^3; in Fq2 four more for the norm and the result)."""
+    spec, nc = curve.spec, curve._ncoord
+    nlimbs, limbs30 = spec.nlimbs, (16 * spec.nlimbs + 29) // 30
+    val = lambda row: sum(int(v) << (16 * i) for i, v in enumerate(row))
+    rows = x.reshape(x.shape[0], nc, nlimbs).cpu().tolist()
+    rinv = pow(1 << (16 * nlimbs), -1, spec.p)
+    from zksaas_tpu_torch.fields.spec import fq2_nonresidue
+
+    nr = fq2_nonresidue(spec)
+    ops = 0
+    for r in rows:
+        y = val(r[0]) if nc == 1 else (val(r[0]) ** 2 - nr * val(r[1]) ** 2) * rinv % spec.p
+        steps = divsteps(spec.p, y)
+        ops += steps * OPS_DIVSTEP + -(-steps // 30) * MULS_BATCH_LIMB * limbs30
+    return ops + x.shape[0] * (1 if nc == 1 else 5) * ops_per_mul(spec)
+
+
+def check_ring(curve):
+    """ring_mul at RING_MUL_WIDTHS and ring_inv at the inversion tree's
+    root width 1,024 on special_ring_elements, both timed as CUDA-graph
+    device time: a launch from Python (the wrapper's checks, the output's
+    allocation, the ctypes call) takes longer than the kernel at 2^17."""
     from zksaas_tpu_torch import kernels
     from zksaas_tpu_torch.curves import point_ops as po
 
     spec, nc = curve.spec, curve._ncoord
-    shape = (n,) + curve.R.coord_shape[:-1]
-    a, b = curve.R.F.rand(gen, shape, "cuda"), curve.R.F.rand(gen, shape, "cuda")
-    a[:4] = 0
     saved = kernels.save_launches()
     rows = []
     ring_muls = 1 if nc == 1 else 3
     opm = ops_per_mul(spec)
     coord = spec.nlimbs * nc * 4
-    out, ref = po.ring_mul(spec, nc, a, b), po.ring_mul_plain(spec, nc, a, b)
-    torch.cuda.synchronize()
-    bms, by = bound(3 * n * coord, n * ring_muls * opm)
-    rows.append(("ring_mul", dict(
-        case=f"{curve.name} n=2^{n.bit_length() - 1}", field=spec.name,
-        max_abs_err=max_err([out], [ref]),
-        ms=cuda_ms(lambda: po.ring_mul(spec, nc, a, b), 20),
-        plain_ms=cuda_ms(lambda: po.ring_mul_plain(spec, nc, a, b), 1),
-        bound_ms=bms, bound_by=by)))
-    x = a[:1024].contiguous()
-    e = spec.p - 2
-    fermat = e.bit_length() - 1 + bin(e).count("1") - 1  # squares + products
+    for n in RING_MUL_WIDTHS:
+        gen = seeded("ring_mul", curve.name, n)
+        a, b = (special_ring_elements(curve, n, gen) for _ in range(2))
+        b = b.flip(0).contiguous()
+        out, ref = po.ring_mul(spec, nc, a, b), po.ring_mul_plain(spec, nc, a, b)
+        torch.cuda.synchronize()
+        bms, by = bound(3 * n * coord, n * ring_muls * opm)
+        rows.append(("ring_mul", dict(
+            case=f"{curve.name} n={n}" if n & (n - 1) or n <= 8192
+            else f"{curve.name} n=2^{n.bit_length() - 1}", field=spec.name,
+            max_abs_err=max_err([out], [ref]),
+            ms=graph_ms(lambda: po.ring_mul(spec, nc, a, b)),
+            plain_ms=cuda_ms(lambda: po.ring_mul_plain(spec, nc, a, b), 1),
+            bound_ms=bms, bound_by=by)))
+    x = special_ring_elements(curve, 1024, seeded("ring_inv", curve.name, 1024))
     out, ref = po.ring_inv(spec, nc, x), po.ring_inv_plain(spec, nc, x)
     torch.cuda.synchronize()
-    bms, by = bound(2 * 1024 * coord, 1024 * (fermat + (0 if nc == 1 else 4)) * opm)
+    bms, by = bound(2 * 1024 * coord, inv_ops(curve, x))
     rows.append(("ring_inv", dict(
         case=f"{curve.name} n=1024", field=spec.name, max_abs_err=max_err([out], [ref]),
-        ms=cuda_ms(lambda: po.ring_inv(spec, nc, x), 5),
+        ms=graph_ms(lambda: po.ring_inv(spec, nc, x)),
         plain_ms=cuda_ms(lambda: po.ring_inv_plain(spec, nc, x), 1),
         bound_ms=bms, bound_by=by)))
     kernels.restore_launches(saved)
     return rows
 
 
-def check_affine_adds(curve, n_aadd, n_madd, gen):
+def check_affine_adds(curve, n_aadd, n_madd):
     """point_aadd over n_aadd affine pairs with P == Q, P == -Q and infinity
     flags mixed in; point_madd_if over n_madd Jacobian accumulators (random
     Z, some at infinity) and affine nodes equal to them, to their
@@ -281,7 +366,7 @@ def check_affine_adds(curve, n_aadd, n_madd, gen):
     saved = kernels.save_launches()
     rows = []
 
-    P, Q, kind = affine_pairs(curve, n_aadd, gen)
+    P, Q, kind = affine_pairs(curve, n_aadd, seeded("aadd", curve.name, n_aadd))
     P, Q = tuple(c.contiguous() for c in P[:2]), tuple(c.contiguous() for c in Q[:2])
     inf1, inf2 = (kind == 3) | (kind == 5), (kind == 4) | (kind == 5)
     live = ~(inf1 | inf2)
@@ -310,6 +395,7 @@ def check_affine_adds(curve, n_aadd, n_madd, gen):
         plain_ms=cuda_ms(plain, 1), bound_ms=bms, bound_by=by)))
     del P, Q, inf1, inf2
 
+    gen = seeded("madd_if", curve.name, n_madd)
     P, Q, kind = affine_pairs(curve, n_madd, gen)
     pin = kind == 3
     inf = curve.infinity((n_madd,), "cuda")
@@ -351,7 +437,7 @@ def sort_edge_cases(gen):
     }
 
 
-def check_sort(rows_, n, gen, edge=False):
+def check_sort(rows_, n, edge=False):
     """sort_u32 over rows_ rows of n random keys, half with bit 31 set, and
     torch.sort of the same keys (widened to int64, as the plain version
     does) as the library yardstick; edge: also the edge cases, bit for bit.
@@ -359,6 +445,7 @@ def check_sort(rows_, n, gen, edge=False):
     from zksaas_tpu_torch import kernels
     from zksaas_tpu_torch.fields.sortperm import sort_u32, sort_u32_plain
 
+    gen = seeded("sort_u32", rows_, n)
     keys = torch.randint(-(1 << 31), 1 << 31, (rows_, n), generator=gen,
                          dtype=torch.int64).int().to("cuda")
     saved = kernels.save_launches()
@@ -385,7 +472,7 @@ def check_sort(rows_, n, gen, edge=False):
     return rows
 
 
-def check_pippenger(curve, m, gen):
+def check_pippenger(curve, m):
     """msm_best on the card for one party's m points (random Z, some at
     infinity, some zero scalars) against scalar_mul_w4 + sum on the card,
     as decoded affine points, with both wall times."""
@@ -393,6 +480,7 @@ def check_pippenger(curve, m, gen):
     from zksaas_tpu_torch.curves.pippenger import msm_best
 
     saved = kernels.save_launches()
+    gen = seeded("pippenger", curve.name, m)
     P, _, kind = affine_pairs(curve, m, gen)
     inf = curve.infinity((m,), "cuda")
     P = tuple(torch.where(_v(kind == 3, c), o, c).contiguous()
@@ -447,7 +535,6 @@ def main():
     log(f"build: {len(kernels.cuda_sources())} CUDA sources, one nvcc each, built in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    gen = torch.Generator().manual_seed(2026)
     cases = {k.name: [] for k in kernels.KERNELS}
 
     def record(rows):
@@ -456,7 +543,7 @@ def main():
             log(f"check {name} {json.dumps(row)}")
 
     for spec in (BN254_FR, BN254_FQ, BLS12_381_FQ, BLS12_377_FQ):
-        record([("montmul", check_montmul(spec, 1 << 20, gen))])
+        record([("montmul", check_montmul(spec, 1 << 20))])
     # every field instance at the flagship's shapes: points at 2^18 (G1)
     # and 2^16 (G2), and at the binary scalar muls' 16; the inversion tree
     # and affine products over 8 x 2^15 points, tree level 1 over 8 x 2^20 / 2
@@ -466,18 +553,18 @@ def main():
     log(f"launch floor: empty kernel {floor:.6f} ms a launch (CUDA graph)")
     for fam in CURVE_FAMILIES:
         for curve, lg in ((curve_g1(fam), 18), (curve_g2(fam), 16)):
-            record(check_points(curve, 1 << lg, gen))
-            record(check_points(curve, 16, gen, small=True))
-            record(check_ring(curve, 1 << 18, gen))
-            record(check_affine_adds(curve, 1 << 22, 8 * 32 * 255, gen))
+            record(check_points(curve, 1 << lg))
+            record(check_points(curve, 16, small=True))
+            record(check_ring(curve))
+            record(check_affine_adds(curve, 1 << 22, 8 * 32 * 255))
             torch.cuda.empty_cache()
-    record(check_sort(8, 1 << 20, gen, edge=True))
-    record(check_sort(8, 1 << 19, gen))
+    record(check_sort(8, 1 << 20, edge=True))
+    record(check_sort(8, 1 << 19))
     for name, rows in cases.items():
         bad = [r for r in rows if r["max_abs_err"] != 0]
         if bad:
             raise SystemExit(f"{name} disagrees with its plain version: {bad}")
-    pip = check_pippenger(curve_g1(), 1 << 15, gen)
+    pip = check_pippenger(curve_g1(), 1 << 15)
     log(f"pippenger {json.dumps(pip)}")
     if not pip["equal"]:
         raise SystemExit(f"msm_best disagrees with scalar_mul_w4 + sum: {pip}")
@@ -507,6 +594,10 @@ def main():
                   if n not in ("montmul", "sort_u32") and not by.get(fq)]
         if missed:
             raise SystemExit(f"the {fam} prove never launched the {fq} instance of {missed}")
+        if (prove["ring_mul"], prove["ring_inv"]) != (PROVE_RING_MUL, PROVE_RING_INV):
+            raise SystemExit(f"the {fam} prove launched ring_mul {prove['ring_mul']} and "
+                             f"ring_inv {prove['ring_inv']} times, not {PROVE_RING_MUL} and "
+                             f"{PROVE_RING_INV}")
         torch.cuda.empty_cache()
 
     out = []

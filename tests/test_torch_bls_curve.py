@@ -138,16 +138,17 @@ def test_jax_bls12_381_dealer_outputs_through_convert():
     ks = jax.random.split(jax.random.PRNGKey(8), 2)
     jq = j_qap_pack(jpp, jr1cs, jz, ks[0])
     jfft, jdeg = j_circom_masks(jpp, jq.dom.n, ks[1])
-    q = convert.qap_from(jq, BLS12_381_FR)
-    fft = [convert.fft_mask_from(m, BLS12_381_FR) for m in jfft]
-    deg = convert.degred_mask_from(jdeg, BLS12_381_FR)
+    q = convert.qap_from(jq, BLS12_381_FR, device="cpu")
+    fft = [convert.fft_mask_from(m, BLS12_381_FR, device="cpu") for m in jfft]
+    deg = convert.degred_mask_from(jdeg, BLS12_381_FR, device="cpu")
     net = LocalNet(pp.n)
     h_share = circom_h(pp, q, fft, deg, net, generator(6))
     h = pp.unpack(h_share.transpose(0, 1)).reshape(-1, pp.F.k)
     assert list(pp.F.decode(h)) == jlocal.witness_map(jr1cs, jz, "circom")
     assert net.rounds == 3
     g1_limbs = np.zeros((8, 2, 24), dtype=np.uint32)
-    assert convert.points_to_torch((g1_limbs,) * 3, nlimbs=24)[0].shape == (8, 2, 24)
+    assert convert.points_to_torch((g1_limbs,) * 3, device="cpu", nlimbs=24)[0].shape == (8, 2, 24)
     with pytest.raises(ValueError):
         convert.msm_mask_from(type("M", (), {"in_mask": (g1_limbs[..., :16],) * 3,
-                                             "out_mask": (g1_limbs,) * 3}), BLS12_381_FR)
+                                             "out_mask": (g1_limbs,) * 3}), BLS12_381_FR,
+                             device="cpu")

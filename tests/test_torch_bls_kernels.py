@@ -38,6 +38,7 @@ from zksaas_tpu_torch.fields.montmul import montmul_plain
 from zksaas_tpu_torch.fields.spec import BLS12_377_FQ, BLS12_381_FQ
 
 from test_torch_heap import release_heap  # noqa: F401  (autouse)
+from test_torch_kernel_core import ring_core_case
 
 torch.set_num_threads(1)
 
@@ -186,8 +187,14 @@ def _ptr(t):
 def test_host_core_matches_plain(core, fam, ncoord):
     """The 12-limb field.cuh cores built with g++ (montmul, add_if, double,
     ring_mul, ring_inv, aadd, madd_if) == the plain versions, 40 lanes with
-    every special case of the adds."""
+    every special case of the adds; ring_mul and ring_inv also on 0, 1, the
+    Montgomery one and p - 1 (Fq2: beside 0), and the inverse of 64 random
+    inputs run as one emulated warp, also == the JAX kernel core
+    (test_torch_kernel_core.ring_core_case)."""
     C = _curve(fam, ncoord)
+    for op in ("mul", "inv"):
+        ring_core_case(core, C, ncoord, op, "special")
+    ring_core_case(core, C, ncoord, "inv", "warp64")
     spec, n = C.spec, 40
     nl, nr, prm = kernels.field_args(spec)
     assert nl == 12 and nr == (-5 if fam == "bls12_377" else -1)

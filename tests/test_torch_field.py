@@ -62,7 +62,8 @@ OPS = {
 def test_elementwise_op_matches_jax(name, op):
     jf, tf, _, _, a, b = _setup(name)
     fn = OPS[op]
-    _eq(fn(jf, jnp.asarray(a), jnp.asarray(b)), fn(tf, convert.to_torch(a), convert.to_torch(b)))
+    _eq(fn(jf, jnp.asarray(a), jnp.asarray(b)),
+        fn(tf, convert.to_torch(a, device="cpu"), convert.to_torch(b, device="cpu")))
 
 
 @pytest.mark.parametrize("op", ["add", "sub", "mul"])
@@ -72,20 +73,21 @@ def test_large_batch_paths_match_jax(op):
     jf, tf, _, _, a, b = _setup("bn254_fq", n=4096, seed=11)
     assert a.shape[0] >= tmontmul._REDC_MIN and 2 * a.size >= tlimbs._SEQ_MIN
     fn = OPS[op]
-    _eq(fn(jf, jnp.asarray(a), jnp.asarray(b)), fn(tf, convert.to_torch(a), convert.to_torch(b)))
+    _eq(fn(jf, jnp.asarray(a), jnp.asarray(b)),
+        fn(tf, convert.to_torch(a, device="cpu"), convert.to_torch(b, device="cpu")))
 
 
 @pytest.mark.parametrize("name", NAMES)
 def test_inv_matches_jax(name):
     jf, tf, _, _, a, _ = _setup(name, n=5, seed=3)
-    _eq(jf.inv(jnp.asarray(a)), tf.inv(convert.to_torch(a)))
+    _eq(jf.inv(jnp.asarray(a)), tf.inv(convert.to_torch(a, device="cpu")))
 
 
 @pytest.mark.parametrize("name", NAMES)
 def test_sum_matches_jax(name):
     jf, tf, _, _, a, _ = _setup(name, n=13, seed=4)
     a3 = a.reshape(4, 4, -1)
-    _eq(jf.sum(jnp.asarray(a3), axis=1), tf.sum(convert.to_torch(a3), axis=1))
+    _eq(jf.sum(jnp.asarray(a3), axis=1), tf.sum(convert.to_torch(a3, device="cpu"), axis=1))
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -102,7 +104,7 @@ def test_encode_decode_round_trip(name):
 def test_batch_inv_zeros_map_to_zeros(name):
     _, tf, xs, _, a, _ = _setup(name, n=20, seed=6)
     p = tf.p
-    got = tf.decode(tf.batch_inv(convert.to_torch(a)))
+    got = tf.decode(tf.batch_inv(convert.to_torch(a, device="cpu")))
     assert list(got) == [pow(x, -1, p) if x else 0 for x in xs]
 
 

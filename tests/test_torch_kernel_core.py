@@ -20,6 +20,10 @@ import numpy as np
 import pytest
 import torch
 
+from zksaas_tpu.curves.fused import _kring
+from zksaas_tpu.fields import BLS12_377_FQ as J_377
+from zksaas_tpu.fields import BLS12_381_FQ as J_381
+from zksaas_tpu.fields import BN254_FQ as J_BN
 from zksaas_tpu.fields.sortperm import sort_u32 as j_sort_u32
 from zksaas_tpu_torch import kernels
 from zksaas_tpu_torch.curves import point_ops
@@ -27,11 +31,13 @@ from zksaas_tpu_torch.curves.curve import curve_g1, curve_g2
 from zksaas_tpu_torch.fields.field import field
 from zksaas_tpu_torch.fields.montmul import montmul_plain
 from zksaas_tpu_torch.fields.sortperm import sort_u32_plain
-from zksaas_tpu_torch.fields.spec import BN254_FQ, BN254_FR
+from zksaas_tpu_torch.fields.spec import BN254_FQ, BN254_FR, fq2_nonresidue
 
 from test_torch_heap import release_heap  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
+
+J_FQ = {"bls12_381": J_381, "bls12_377": J_377, "bn254": J_BN}
 
 
 @pytest.fixture(scope="module")
@@ -118,10 +124,114 @@ def test_core_double_matches_plain(core, ncoord, k):
         assert torch.equal(o, r)
 
 
+def _int(limbs):
+    return sum(int(v) << (16 * i) for i, v in enumerate(limbs))
+
+
+def _limbs(spec, x):
+    return torch.tensor([(x >> (16 * i)) & 0xFFFF for i in range(spec.nlimbs)], dtype=torch.int32)
+
+
+def _special(C, ncoord, seed):
+    """Ring elements that stress the inverse and the product: 0, the
+    integer 1, the Montgomery one, p - 1, and in Fq2 each of them beside 0
+    and beside a random coordinate, then random elements (40 in all)."""
+    spec = C.spec
+    a = C.R.F.rand(torch.Generator().manual_seed(seed), (40,) + C.R.coord_shape[:-1], "cpu")
+    vals = [_limbs(spec, v) for v in (0, 1, spec.r_mod_p, spec.p - 1)]
+    if ncoord == 1:
+        for i, v in enumerate(vals):
+            a[i] = v
+    else:
+        for i, v in enumerate(vals):
+            a[3 * i] = torch.stack([v, torch.zeros_like(v)])
+            a[3 * i + 1] = torch.stack([torch.zeros_like(v), v])
+            a[3 * i + 2, 1] = v
+    return a
+
+
+def _divstep_batches(p, x):
+    """Batches of 30 half-delta divsteps that take (p, x) to g = 0."""
+    zeta, f, g, n = -1, p, x, 0
+    while g:
+        for _ in range(30):
+            if g & 1:
+                zeta, f, g = (-zeta - 2, g, (g - f) >> 1) if zeta < 0 else (zeta - 1, f, (g + f) >> 1)
+            else:
+                zeta, g = zeta - 1, g >> 1
+        n += 1
+    return n
+
+
+def ring_core_case(core, C, ncoord, op, kind):
+    """The g++ ring_mul / ring_inv (csrc/field.cuh: cc_mont, FqInverse) on
+    the _special inputs or (kind "warp64") on 64 random ones run as one
+    emulated warp, == ring_mul_plain / ring_inv_plain and the JAX kernel
+    core (fused.py::_kring: its product, and its product of each nonzero
+    input with its inverse is the ring's one; 0 maps to 0).  warp64 also
+    checks that its lanes needed different numbers of divstep batches, so
+    the lanes done first went on stepping until the last was done."""
+    spec = C.spec
+    R = _kring(J_FQ[spec.name[:-3]], ncoord)
+    if kind == "special":
+        a = _special(C, ncoord, 90 + ncoord)
+    else:  # 0 and the integer 1 (c0 of an Fq2 element) finish their divsteps first
+        a = C.R.F.rand(torch.Generator().manual_seed(95 + ncoord), (64,) + C.R.coord_shape[:-1],
+                       "cpu")
+        a[0] = 0
+        a[1] = 0
+        a[1].view(-1)[0] = 1
+    n = a.shape[0]
+    nl, nr, prm = kernels.field_args(spec)
+    out = torch.empty_like(a)
+    elem = lambda x: _elem(ncoord, x)
+    if op == "mul":
+        b = a.flip(0).contiguous()
+        assert core.zkc_ring_mul(nl, nr, ncoord, _ptr(a), _ptr(b), _ptr(out), n, prm) == 0
+        assert torch.equal(out, point_ops.ring_mul_plain(spec, ncoord, a, b))
+        np.testing.assert_array_equal(out.numpy(), _unelem(ncoord, R.mm(elem(a), elem(b))))
+        return
+    assert core.zkc_ring_inv(nl, nr, ncoord, _ptr(a), _ptr(out), n, prm) == 0
+    assert torch.equal(out, point_ops.ring_inv_plain(spec, ncoord, a))
+    zero = (a == 0).flatten(1).all(1)
+    assert not out[zero].any()
+    nz = ~zero
+    one = C.R.ones((int(nz.sum()),), "cpu")
+    np.testing.assert_array_equal(_unelem(ncoord, R.mm(elem(a[nz]), elem(out[nz]))), one.numpy())
+    if kind == "warp64":
+        rinv = pow(1 << (16 * spec.nlimbs), -1, spec.p)
+        c = a.reshape(n, ncoord, -1)
+        norm = [(_int(x[0]) ** 2 - fq2_nonresidue(spec) * _int(x[-1]) ** 2 if ncoord == 2
+                 else _int(x[0])) * (rinv if ncoord == 2 else 1) % spec.p for x in c]
+        batches = [_divstep_batches(spec.p, x) for x in norm]
+        assert min(batches) < max(batches), batches
+
+
+def _elem(ncoord, x):
+    """(n, *coord) int32 limbs -> the JAX kernel core's element (lists of
+    (n,) uint32 limb arrays)."""
+    a = x.numpy().astype(np.uint32)
+    if ncoord == 1:
+        return [a[:, k] for k in range(a.shape[-1])]
+    return tuple([a[:, c, k] for k in range(a.shape[-1])] for c in range(2))
+
+
+def _unelem(ncoord, e):
+    if ncoord == 1:
+        return np.stack(e, axis=-1).astype(np.int32)
+    return np.stack([np.stack(c, axis=-1) for c in e], axis=-2).astype(np.int32)
+
+
 @pytest.mark.parametrize("op", ["mul", "inv"])
 @pytest.mark.parametrize("ncoord", [1, 2], ids=["g1", "g2"])
 def test_core_ring_matches_plain(core, ncoord, op):
+    """The g++ ring_mul / ring_inv: ring_core_case on the special inputs
+    and, for the inverse, on 64 lanes as one emulated warp; then == the
+    plain versions on random inputs."""
     C = curve_g1() if ncoord == 1 else curve_g2()
+    ring_core_case(core, C, ncoord, op, "special")
+    if op == "inv":
+        ring_core_case(core, C, ncoord, op, "warp64")
     n = 64 if op == "mul" else 6
     gen = torch.Generator().manual_seed(50 + ncoord)
     a, b = (C.R.F.rand(gen, (n,) + C.R.coord_shape[:-1], device="cpu") for _ in range(2))

@@ -5,13 +5,15 @@ Pure Python, nothing is built or launched: `_parse_ptxas` on the
 (csrc/ring_g1_8.cu and csrc/ring_g2_12_5.cu), where the grouped kernels call
 the non-inlined `cc_mul` and ptxas lists that callee's frame under its own
 name; `_kernel_label` on the mangled name of every point and ring kernel in
-each of the five coordinate rings; and `_short` on trace kernel names.
-Tolerance: exact equality.
+each of the five coordinate rings; `_short` on trace kernel names; and
+`_kernel_table` on a small recorded trace.  Tolerance: exact equality.
 """
+
+import json
 
 import pytest
 
-from zksaas_tpu_torch.profile_prove import _kernel_label, _parse_ptxas, _short
+from zksaas_tpu_torch.profile_prove import TOP, _kernel_label, _kernel_table, _parse_ptxas, _short
 
 from test_torch_heap import release_heap  # noqa: F401  (autouse)
 
@@ -166,6 +168,13 @@ def test_kernel_label_names_the_kernel_and_its_ring(kernel, ring):
     assert _kernel_label(_mangled(kernel, ring)) == f"{kernel}<{RINGS[ring]}>"
 
 
+def test_kernel_label_names_a_second_template_argument():
+    """ring_mul_kernel<R, PARTS> (csrc/kernels.cuh), as ptxas names it."""
+    for ring, label in (("7RingFq2ILi12ELi5EE", "Fq2[12, nr -5]"), ("6RingFqILi8EE", "Fq[8]")):
+        name = f"_ZN2zk15ring_mul_kernelINS_{ring}ELi3EEEvPKiS5_PilNT_1PE"
+        assert _kernel_label(name) == f"ring_mul_kernel<{label}, 3>"
+
+
 @pytest.mark.parametrize("raw,want", [
     ("void zk::add_kernel<zk::RingFq2<12, 1> >(int const*, int const*, int const*, int const*, "
      "int const*, int const*, unsigned char const*, int*, int*, int*, long, "
@@ -183,3 +192,33 @@ def test_kernel_label_names_the_kernel_and_its_ring(kernel, ring):
 def test_short_keeps_the_ring_of_the_port_kernels_only(raw, want):
     assert _short(raw) == want
 
+
+
+def test_kernel_table_lists_every_port_kernel_whatever_its_rank(tmp_path):
+    """A trace of 30 PyTorch kernels, each longer than any of the port's
+    ring_mul, ring_inv, montmul and sort-pass kernels: the table holds the
+    TOP names by time and all four of the port's, with their seconds and
+    launches; the busy time is the union of the intervals."""
+    ring = "zk::RingFq<8>"
+    port = [f"void zk::ring_mul_kernel<{ring} >(int const*, int const*, int*, long, {ring}::P)",
+            f"void zk::ring_inv_kernel<{ring} >(int const*, int*, long, {ring}::P)",
+            "void montmul_kernel<8>(int const*, int const*, int*, long, FieldParams<8>)",
+            "radix_scatter_kernel(unsigned int const*, unsigned int*, int const*, int, int, int)"]
+    torch_names = [f"void at::native::kernel_{i}<float>(float*)" for i in range(30)]
+    events = [{"cat": "kernel", "name": n, "ts": 1000 * i, "dur": 100 + i}
+              for i, n in enumerate(torch_names)]
+    events += [{"cat": "kernel", "name": n, "ts": 50_000 + 10 * i, "dur": 5} for i, n in
+               enumerate(port + port[:1])]
+    events.append({"cat": "cpu_op", "name": "aten::add", "ts": 0, "dur": 10**6})
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    table = _kernel_table(str(path))
+    names = [r["name"] for r in table["by_name"]]
+    assert names[:TOP] == [f"at::native::kernel_{i}" for i in range(29, 29 - TOP, -1)]
+    rest = table["by_name"][TOP:]
+    assert {r["name"]: r["launches"] for r in rest} == {
+        f"zk::ring_mul_kernel<{ring} >": 2, f"zk::ring_inv_kernel<{ring} >": 1,
+        "montmul_kernel": 1, "radix_scatter_kernel": 1}
+    assert [r["device_s"] for r in rest] == pytest.approx([10e-6, 5e-6, 5e-6, 5e-6])
+    assert table["kernels_in_trace"] == 35
+    assert table["device_busy_s"] == pytest.approx((sum(100 + i for i in range(30)) + 25) * 1e-6)

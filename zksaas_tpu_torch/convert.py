@@ -15,6 +15,8 @@ holds both can hand the same CRS, shares and masks to both.
 The *_from functions take the circuit's scalar field spec (BN254, BLS12-381
 or BLS12-377 Fr) and check every array's limb count against it: K limbs for
 scalars, the curve's base field (16 or 24 limbs) for point coordinates.
+Like every entry point of the port, they put their tensors on the card
+unless the caller passes device="cpu" (device.resolve_device).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .dist.deg_red import DegRedMask
 from .dist.dfft import FftMask
 from .dist.dmsm import MsmMask
@@ -35,7 +38,7 @@ from .groth16.qap import PackedQAPShare
 from .ntt.domain import domain
 
 
-def to_torch(a, device="cpu", nlimbs: int | None = None) -> torch.Tensor:
+def to_torch(a, device="cuda", nlimbs: int | None = None) -> torch.Tensor:
     """uint32 limb array -> int32 tensor (values < 2^16, so bit-equal);
     with `nlimbs`, the last axis must hold that many limbs."""
     arr = np.asarray(a)
@@ -45,14 +48,14 @@ def to_torch(a, device="cpu", nlimbs: int | None = None) -> torch.Tensor:
         raise ValueError(f"expected {nlimbs} limbs on the last axis, got shape {arr.shape}")
     if arr.size and int(arr.max()) >> 16:
         raise ValueError("limbs must be < 2^16")
-    return torch.from_numpy(arr.astype(np.int32)).to(device)
+    return torch.from_numpy(arr.astype(np.int32)).to(resolve_device(device))
 
 
 def to_numpy(t) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.uint32)
 
 
-def points_to_torch(P, device="cpu", nlimbs: int | None = None) -> tuple:
+def points_to_torch(P, device="cuda", nlimbs: int | None = None) -> tuple:
     return tuple(to_torch(c, device, nlimbs) for c in P)
 
 
@@ -70,7 +73,7 @@ def _fq_limbs(spec) -> int:
     return FIELDS[f"{curve_family(spec)}_fq"].nlimbs
 
 
-def crs_from(src, spec, device="cpu") -> PackedProvingKeyShare:
+def crs_from(src, spec, device="cuda") -> PackedProvingKeyShare:
     kw = {k: points_to_torch(getattr(src, k), device, _fq_limbs(spec)) for k in _CRS_POINTS}
     kw.update({k: getattr(src, k) for k in _CRS_CLEAR})
     return PackedProvingKeyShare(**kw)
@@ -82,7 +85,7 @@ def crs_to_numpy(crs: PackedProvingKeyShare) -> dict:
     return out
 
 
-def qap_from(src, spec, device="cpu") -> PackedQAPShare:
+def qap_from(src, spec, device="cuda") -> PackedQAPShare:
     """src: a, b, c (n, m/l, K) arrays, num_inputs, num_constraints and a
     domain whose size is src.dom.n."""
     return PackedQAPShare(
@@ -100,23 +103,23 @@ def qap_to_numpy(q: PackedQAPShare) -> dict:
                 a=to_numpy(q.a), b=to_numpy(q.b), c=to_numpy(q.c))
 
 
-def fft_mask_from(src, spec, device="cpu") -> FftMask:
+def fft_mask_from(src, spec, device="cuda") -> FftMask:
     k = spec.nlimbs
     return FftMask(to_torch(src.in_mask, device, k), to_torch(src.out_mask, device, k))
 
 
-def degred_mask_from(src, spec, device="cpu") -> DegRedMask:
+def degred_mask_from(src, spec, device="cuda") -> DegRedMask:
     k = spec.nlimbs
     return DegRedMask(to_torch(src.in_mask, device, k), to_torch(src.out_mask, device, k))
 
 
-def msm_mask_from(src, spec, device="cpu") -> MsmMask:
+def msm_mask_from(src, spec, device="cuda") -> MsmMask:
     k = _fq_limbs(spec)
     return MsmMask(points_to_torch(src.in_mask, device, k),
                    points_to_torch(src.out_mask, device, k))
 
 
-def prove_masks_from(src, spec, device="cpu") -> ProveMasks:
+def prove_masks_from(src, spec, device="cuda") -> ProveMasks:
     return ProveMasks(
         fft_masks=[fft_mask_from(m, spec, device) for m in src.fft_masks],
         degred_mask=degred_mask_from(src.degred_mask, spec, device),

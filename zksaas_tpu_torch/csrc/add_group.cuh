@@ -1,7 +1,7 @@
 // The grouped point programs of kernels 2-4 and 7 (point_add / point_add_if,
 // point_double(k), point_aadd): each runs on a group of G lanes that share
-// one point, on the Fq arithmetic defined here, Montgomery products, adds
-// and subs written as carry chains.
+// one point, on the carry-chain Fq arithmetic of field.cuh (cc_mul, cc_add,
+// cc_sub).
 //
 // Replaces the one-thread-per-point formulas of zksaas_tpu/curves/fused.py:
 // _add_core (_add_call, _add_select_call), _double_core applied k times
@@ -28,7 +28,7 @@
 // On the host (g++, csrc/host_core.cpp) the same programs run with the
 // lanes looped serially and the carry flag emulated in C, so the CPU tests
 // check the device's algorithm step for step; only the mapping of each
-// primitive below to its PTX instruction is not exercised there.
+// carry-chain primitive to its PTX instruction is not exercised there.
 
 #pragma once
 #include <stdint.h>
@@ -36,185 +36,6 @@
 #include "field.cuh"
 
 namespace zk {
-
-// ---------------------------------------------------------------------------
-// carry-chain primitives: on the device one PTX instruction each, chained
-// through the condition code's carry flag (asm volatile keeps their order);
-// on the host the flag is the explicit `cf`
-// ---------------------------------------------------------------------------
-
-#if defined(__CUDA_ARCH__)
-#define ZK_CC_OP(name, ptx)                                                       \
-    __device__ __forceinline__ uint32_t name(uint32_t a, uint32_t b, uint32_t&) { \
-        uint32_t r;                                                              \
-        asm volatile(ptx " %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));             \
-        return r;                                                                \
-    }
-#define ZK_CC_MAD(name, ptx)                                                        \
-    __device__ __forceinline__ uint32_t name(uint32_t a, uint32_t b, uint32_t c,    \
-                                             uint32_t&) {                           \
-        uint32_t r;                                                                \
-        asm volatile(ptx " %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));   \
-        return r;                                                                  \
-    }
-ZK_CC_OP(add_cc, "add.cc.u32")
-ZK_CC_OP(addc_cc, "addc.cc.u32")
-ZK_CC_OP(addc, "addc.u32")
-ZK_CC_OP(sub_cc, "sub.cc.u32")
-ZK_CC_OP(subc_cc, "subc.cc.u32")
-ZK_CC_OP(subc, "subc.u32")
-ZK_CC_MAD(mad_lo_cc, "mad.lo.cc.u32")
-ZK_CC_MAD(madc_lo_cc, "madc.lo.cc.u32")
-ZK_CC_MAD(mad_hi_cc, "mad.hi.cc.u32")
-ZK_CC_MAD(madc_hi_cc, "madc.hi.cc.u32")
-ZK_CC_MAD(madc_hi, "madc.hi.u32")
-#undef ZK_CC_OP
-#undef ZK_CC_MAD
-#else
-inline uint32_t add_cc(uint32_t a, uint32_t b, uint32_t& cf) {
-    uint64_t s = (uint64_t)a + b;
-    cf = (uint32_t)(s >> 32);
-    return (uint32_t)s;
-}
-inline uint32_t addc_cc(uint32_t a, uint32_t b, uint32_t& cf) {
-    uint64_t s = (uint64_t)a + b + cf;
-    cf = (uint32_t)(s >> 32);
-    return (uint32_t)s;
-}
-inline uint32_t addc(uint32_t a, uint32_t b, uint32_t& cf) { return a + b + cf; }
-inline uint32_t sub_cc(uint32_t a, uint32_t b, uint32_t& cf) {
-    uint64_t d = (uint64_t)a - b;
-    cf = (uint32_t)(d >> 63);  // borrow
-    return (uint32_t)d;
-}
-inline uint32_t subc_cc(uint32_t a, uint32_t b, uint32_t& cf) {
-    uint64_t d = (uint64_t)a - b - cf;
-    cf = (uint32_t)(d >> 63);
-    return (uint32_t)d;
-}
-inline uint32_t subc(uint32_t a, uint32_t b, uint32_t& cf) { return a - b - cf; }
-inline uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c, uint32_t& cf) {
-    return add_cc(a * b, c, cf);
-}
-inline uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c, uint32_t& cf) {
-    return addc_cc(a * b, c, cf);
-}
-inline uint32_t mad_hi_cc(uint32_t a, uint32_t b, uint32_t c, uint32_t& cf) {
-    return add_cc((uint32_t)(((uint64_t)a * b) >> 32), c, cf);
-}
-inline uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c, uint32_t& cf) {
-    return addc_cc((uint32_t)(((uint64_t)a * b) >> 32), c, cf);
-}
-inline uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c, uint32_t& cf) {
-    return addc((uint32_t)(((uint64_t)a * b) >> 32), c, cf);
-}
-#endif
-
-// ---------------------------------------------------------------------------
-// Fq on carry chains.  Operands are canonical (< p) and p < 2^(32 NL - 2)
-// (BN254: 254 bits of 256; BLS12-381/377: 381/377 of 384), which bounds
-// every sum below and lets each result be picked by a borrow mask instead
-// of a branch.
-// ---------------------------------------------------------------------------
-
-// x - p if x >= p, else x, for x < 2p: the borrow of x - p as a mask
-template <int NL>
-ZK_HD Fq<NL> cc_reduce(const Fq<NL>& x, const FieldParams<NL>& F) {
-    uint32_t cf = 0;
-    Fq<NL> d;
-    d.v[0] = sub_cc(x.v[0], F.p[0], cf);
-#pragma unroll
-    for (int i = 1; i < NL; i++) d.v[i] = subc_cc(x.v[i], F.p[i], cf);
-    const uint32_t keep = subc(0u, 0u, cf);  // all ones iff x < p
-#pragma unroll
-    for (int i = 0; i < NL; i++) d.v[i] = (x.v[i] & keep) | (d.v[i] & ~keep);
-    return d;
-}
-
-template <int NL>
-ZK_HD Fq<NL> cc_add(const Fq<NL>& a, const Fq<NL>& b, const FieldParams<NL>& F) {
-    uint32_t cf = 0;
-    Fq<NL> s;
-    s.v[0] = add_cc(a.v[0], b.v[0], cf);
-#pragma unroll
-    for (int i = 1; i < NL - 1; i++) s.v[i] = addc_cc(a.v[i], b.v[i], cf);
-    s.v[NL - 1] = addc(a.v[NL - 1], b.v[NL - 1], cf);  // a + b < 2p: no carry out
-    return cc_reduce(s, F);
-}
-
-template <int NL>
-ZK_HD Fq<NL> cc_dbl(const Fq<NL>& a, const FieldParams<NL>& F) {
-    return cc_add(a, a, F);
-}
-
-template <int NL>
-ZK_HD Fq<NL> cc_sub(const Fq<NL>& a, const Fq<NL>& b, const FieldParams<NL>& F) {
-    uint32_t cf = 0;
-    Fq<NL> d;
-    d.v[0] = sub_cc(a.v[0], b.v[0], cf);
-#pragma unroll
-    for (int i = 1; i < NL; i++) d.v[i] = subc_cc(a.v[i], b.v[i], cf);
-    const uint32_t back = subc(0u, 0u, cf);  // all ones iff a < b: add p back
-    d.v[0] = add_cc(d.v[0], F.p[0] & back, cf);
-#pragma unroll
-    for (int i = 1; i < NL - 1; i++) d.v[i] = addc_cc(d.v[i], F.p[i] & back, cf);
-    d.v[NL - 1] = addc(d.v[NL - 1], F.p[NL - 1] & back, cf);
-    return d;
-}
-
-// CIOS Montgomery product a b R^-1 mod p, R = 2^(32 NL), a < p, b < R.
-// Row i adds a b_i as two chains (the low words of the products at their
-// column, the high words one column up), then m p with m = t_0 n0 the same
-// way, and drops the zero low word.  The accumulator t stays below 2p
-// between rows and below 2^(32 (NL + 1)) inside one, so NL + 1 words hold
-// it and no chain carries out of the top word; one masked subtraction of p
-// leaves the canonical residue.
-//
-// Not inlined on the device: the add's program calls it from 9 places, and
-// that many inlined copies of its 4 NL^2 chained instructions (about 600
-// at 12 limbs) leave the kernel's code larger than the instruction cache;
-// one copy, its operands passed by value, runs faster at every batch size.
-#if defined(__CUDACC__)
-#define ZK_MUL_HD __host__ __device__ __noinline__
-#else
-#define ZK_MUL_HD inline
-#endif
-template <int NL>
-ZK_MUL_HD Fq<NL> cc_mul(const Fq<NL> a, const Fq<NL> b, const FieldParams<NL>& F) {
-    uint32_t t[NL + 1];
-#pragma unroll
-    for (int j = 0; j <= NL; j++) t[j] = 0;
-    uint32_t cf = 0;
-#pragma unroll
-    for (int i = 0; i < NL; i++) {
-        const uint32_t bi = b.v[i];
-        t[0] = mad_lo_cc(a.v[0], bi, t[0], cf);
-#pragma unroll
-        for (int j = 1; j < NL; j++) t[j] = madc_lo_cc(a.v[j], bi, t[j], cf);
-        t[NL] = addc(t[NL], 0u, cf);
-        t[1] = mad_hi_cc(a.v[0], bi, t[1], cf);
-#pragma unroll
-        for (int j = 1; j < NL - 1; j++) t[j + 1] = madc_hi_cc(a.v[j], bi, t[j + 1], cf);
-        t[NL] = madc_hi(a.v[NL - 1], bi, t[NL], cf);
-
-        const uint32_t m = t[0] * F.n0;
-        t[0] = mad_lo_cc(m, F.p[0], t[0], cf);  // 0, with its carry
-#pragma unroll
-        for (int j = 1; j < NL; j++) t[j] = madc_lo_cc(m, F.p[j], t[j], cf);
-        t[NL] = addc(t[NL], 0u, cf);
-        t[1] = mad_hi_cc(m, F.p[0], t[1], cf);
-#pragma unroll
-        for (int j = 1; j < NL - 1; j++) t[j + 1] = madc_hi_cc(m, F.p[j], t[j + 1], cf);
-        t[NL] = madc_hi(m, F.p[NL - 1], t[NL], cf);
-#pragma unroll
-        for (int j = 0; j < NL; j++) t[j] = t[j + 1];
-        t[NL] = 0;
-    }
-    Fq<NL> r;
-#pragma unroll
-    for (int j = 0; j < NL; j++) r.v[j] = t[j];
-    return cc_reduce(r, F);
-}
 
 // ---------------------------------------------------------------------------
 // the grouped point programs
@@ -313,13 +134,7 @@ struct Group {
         step(n * NC, [&](int q) { fn(q / NC, q % NC); });
     }
 
-    ZK_HD E neg_nr(const E& x) const {
-        if constexpr (NR == 1) {
-            return x;
-        } else {
-            return cc_add(cc_dbl(cc_dbl(x, F), F), x, F);
-        }
-    }
+    ZK_HD E neg_nr(const E& x) const { return cc_neg_nr<NR>(x, F); }
 
     // d[k] = a[k] b[k], K independent ring products
     template <int K>

@@ -26,16 +26,40 @@ static int group_loop(long n, const uint32_t* params, Fn&& fn) {
 }
 
 template <class R>
-static void ring_loop(const int32_t* a, const int32_t* b, int32_t* out, long n,
-                      const uint32_t* params) {
+static void ring_mul_loop(const int32_t* a, const int32_t* b, int32_t* out, long n,
+                          const uint32_t* params) {
     typename R::P F = params_from<R::NL>(params);
     for (long i = 0; i < n; i++) {
         const long off = i * R::LIMBS16;
         typename R::E x, y;
         load16(a + off, x);
-        if (b != nullptr) load16(b + off, y);
-        store16(out + off, b != nullptr ? R::mul(x, y, F) : R::inv(x, F));
+        load16(b + off, y);
+        store16(out + off, R::mul_cc(x, y, F));
     }
+}
+
+// The n lanes as one warp: every lane steps its inverse's batches in
+// lockstep until every lane's g is 0 (the device's warp vote), so lanes
+// that finish early take the extra batches as they do on the card.
+template <class R>
+static void ring_inv_warp(const int32_t* a, int32_t* out, long n, const uint32_t* params) {
+    typename R::P F = params_from<R::NL>(params);
+    const InvParams<R::NL> I = inv_params_from<R::NL>(params);
+    std::vector<typename R::E> x(n);
+    std::vector<FqInverse<R::NL>> lanes;
+    for (long i = 0; i < n; i++) {
+        load16(a + i * R::LIMBS16, x[i]);
+        lanes.emplace_back(R::inv_norm(x[i], F), I);
+    }
+    auto all_done = [&] {
+        for (const auto& s : lanes)
+            if (!s.done()) return false;
+        return true;
+    };
+    for (int b = 0; b < FqInverse<R::NL>::MAX_BATCHES && !all_done(); b++)
+        for (auto& s : lanes) s.step(I);
+    for (long i = 0; i < n; i++)
+        store16(out + i * R::LIMBS16, R::inv_finish(x[i], lanes[i].result(F, I), F));
 }
 
 template <class R>
@@ -119,7 +143,7 @@ int zkc_point_double(int nl, int nr, int ncoord, const int32_t* x, const int32_t
 int zkc_ring_mul(int nl, int nr, int ncoord, const int32_t* a, const int32_t* b,
                  int32_t* out, long n, const uint32_t* params) {
     return with_ring(nl, nr, ncoord, [&](auto r) {
-        ring_loop<decltype(r)>(a, b, out, n, params);
+        ring_mul_loop<decltype(r)>(a, b, out, n, params);
         return 0;
     });
 }
@@ -127,7 +151,7 @@ int zkc_ring_mul(int nl, int nr, int ncoord, const int32_t* a, const int32_t* b,
 int zkc_ring_inv(int nl, int nr, int ncoord, const int32_t* a, int32_t* out, long n,
                  const uint32_t* params) {
     return with_ring(nl, nr, ncoord, [&](auto r) {
-        ring_loop<decltype(r)>(a, nullptr, out, n, params);
+        ring_inv_warp<decltype(r)>(a, out, n, params);
         return 0;
     });
 }

@@ -40,18 +40,31 @@
 //
 // Kernel 5, ring_mul: replaces zksaas_tpu/curves/fused.py::_fmul_call
 //   (pfmul), the product of the batch-inversion tree and the affine
-//   conversion.  Bound: memory (3 coordinates against one Montgomery
-//   product in Fq, as montmul; three products in Fq2).  Design: as
-//   montmul, one thread per element; the Fq2 Karatsuba product is one
-//   launch instead of three montmuls and the add/sub glue between them.
+//   conversion, 1,024-2^18 elements a launch.  Bound: memory (3
+//   coordinates against one Montgomery product in Fq, as montmul; three
+//   products in Fq2) from 2^14 elements up, one element's latency below.
+//   Design (kernels.cuh): the products on PTX carry chains (cc_mont,
+//   inlined); above 2^17 rows in Fq and 2^16 in Fq2 a block stages its
+//   tile of 64 rows of a and b in shared memory with coalesced cp.async
+//   copies and writes the products out through it, so every warp access
+//   to device memory is whole sectors, and several blocks a SM overlap
+//   copies with products.  Below, where the rows come from L2 and a
+//   launch costs one row's latency, Fq reads each row straight into its
+//   thread, and Fq2 splits a row's three Karatsuba Fq products over three
+//   threads of the tiled kernel.  The Fq2 product is one launch instead
+//   of three montmuls and the add/sub glue between them.
 //
 // Kernel 6, ring_inv: replaces fused.py::_finv_call (pfinv), the root of
-//   the inversion tree (at most 1,024 elements).  Bound: the serial chain
-//   of ~380 (BN254) or ~570 (BLS12) Montgomery products per element; at
-//   1,024 elements only 8 blocks run, so its time is that chain's
-//   latency, not a rate.  Design: one thread per element; the exponent
-//   p - 2 comes from the field's params in registers (the TPU read its
-//   bits from SMEM).
+//   the inversion tree (at most 1,024 elements).  Bound: one element's
+//   chain of dependent steps, since 1,024 elements fill only 32 warps;
+//   the TPU's Fermat chain a^(p-2) is ~380 (BN254) or ~570 (BLS12)
+//   dependent Montgomery products.  Design: Bernstein-Yang's safegcd
+//   (field.cuh::FqInverse), one thread an element in warps of their own
+//   (32 blocks of 32 threads): branch-free batches of 30 divsteps on
+//   32-bit words, each batch's matrix applied to 30-bit limbs, until a
+//   warp vote finds every lane done (18 batches over BN254's Fq, 26-27
+//   over the BLS12 fields, on random inputs), then one carry-chain
+//   product by R^3 mod p; Fq2 through the norm.
 //
 // Kernel 7, point_aadd: replaces fused.py::_aadd_call (paddaa), tree level
 //   1 over the sorted affine leaves.  Bound: memory by count (4

@@ -1,7 +1,7 @@
-"""The point add, add-if, double, affine+affine add and key sort of two
-checkouts, timed on one card.
+"""The point add, add-if, double, affine+affine add, ring product, ring
+inverse and key sort of two checkouts, timed on one card.
 
-  python -m zksaas_tpu_torch.kernel_ab --ref DIR [--out FILE]
+  python -m zksaas_tpu_torch.kernel_ab --ref DIR [--out FILE] [--groups G,...]
 
 DIR is another checkout of the repo (say the parent commit, unpacked with
 `git archive`).  Both checkouts' kernels are built first (at once), then
@@ -21,14 +21,20 @@ coordinate ring (G1 and G2 of BN254, BLS12-381, BLS12-377):
 * point_aadd at 2^21 pairs (Pippenger's tree level 1 in the path's
   2^14-chunk MSMs) and 2^22 (the 2^15-chunk h-query MSM), with P == Q,
   P == -Q and infinity flags mixed in, with CUDA events;
+* ring_mul at 2^18 and 2^17 elements (the affine conversion, the inversion
+  tree's widest level), 8,192 and 1,024 (its levels near the root) and
+  ring_inv at 1,024 (the root), as CUDA-graph device time: one launch from
+  Python takes longer than the kernel at 2^17;
 
 and the key sort over 8 rows of 2^19 and of 2^20 keys beside torch.sort on
 the same keys, with the sort's device time per kernel name from
-torch.profiler.  The inputs are chip_smoke.test_points / affine_pairs /
-random keys from fixed seeds, the same in every run.  The empty kernel's
-graph time (this checkout only) is the launch floor.  Prints the card's name and
-power limit and one JSON line: every run's numbers under its checkout.
-Needs a CUDA device.  Imports nothing of JAX.
+torch.profiler.  --groups picks some of the groups points (the add,
+add-if, double and aadd), ring and sort (all by default).  The inputs are chip_smoke.test_points /
+affine_pairs, random ring elements and random keys from fixed seeds, the
+same in every run.  The empty kernel's graph time (this checkout only) is
+the launch floor.  Prints the card's name and power limit and one JSON
+line: every run's numbers under its checkout.  Needs a CUDA device.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -106,7 +112,10 @@ def _device_ms_by_kernel(fn, calls: int) -> dict:
     return out
 
 
-def _worker(root: str) -> dict:
+GROUPS = ("points", "ring", "sort")
+
+
+def _worker(root: str, groups=GROUPS) -> dict:
     """Time the kernels of the checkout at `root` (this process imports its
     package and its chip_smoke.py)."""
     sys.path.insert(0, root)
@@ -125,7 +134,17 @@ def _worker(root: str) -> dict:
     for fam in CURVE_FAMILIES:
         for C, lg in ((curve_g1(fam), 18), (curve_g2(fam), 16)):
             spec, nc = C.spec, C._ncoord
+            if "ring" in groups:
+                gen = torch.Generator().manual_seed(2027)
+                for n in (1 << 18, 1 << 17, 8192, 1024):
+                    a, b = (C.R.F.rand(gen, (n,) + C.R.coord_shape[:-1], "cuda") for _ in "ab")
+                    res[f"{C.name} ring_mul n={n}"] = graph_ms(lambda: po.ring_mul(spec, nc, a, b))
+                x = a[:1024].contiguous()
+                res[f"{C.name} ring_inv n=1024"] = graph_ms(lambda: po.ring_inv(spec, nc, x), 50)
+                del a, b, x
             gen = torch.Generator().manual_seed(2026)
+            if "points" not in groups:
+                continue
             P, Q, cond, _ = test_points(C, 16, gen)
             res[f"{C.name} add_if n=16"] = graph_ms(lambda: po.point_add_if(spec, nc, P, Q, cond))
             res[f"{C.name} add n=16"] = graph_ms(lambda: po.point_add(spec, nc, P, Q))
@@ -149,7 +168,7 @@ def _worker(root: str) -> dict:
                 del P, Q, inf1, inf2
             torch.cuda.empty_cache()
     gen = torch.Generator().manual_seed(7)
-    for lg in (19, 20):
+    for lg in (19, 20) if "sort" in groups else ():
         keys = torch.randint(-(1 << 31), 1 << 31, (8, 1 << lg), generator=gen,
                              dtype=torch.int64).int().to("cuda")
         wide = keys.long() & 0xFFFFFFFF
@@ -172,6 +191,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ref", help="the other checkout's root directory")
     ap.add_argument("--out", help="also write the JSON line to this file")
+    ap.add_argument("--groups", default=",".join(GROUPS),
+                    help=f"comma-separated kernel groups to time, of {', '.join(GROUPS)}")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--build", help=argparse.SUPPRESS)
     a = ap.parse_args()
@@ -181,8 +202,11 @@ def main():
 
         kernels.cuda_lib()
         return
+    groups = a.groups.split(",")
+    if not set(groups) <= set(GROUPS):
+        sys.exit(f"kernel_ab: --groups takes {', '.join(GROUPS)}")
     if a.worker:
-        print(json.dumps(_worker(a.worker)))
+        print(json.dumps(_worker(a.worker, groups)))
         return
     import torch
 
@@ -201,7 +225,7 @@ def main():
         sys.exit("kernel_ab: a build failed")
     runs = {"ref": [], "this": []}
     for who in ("ref", "this", "this", "ref"):
-        out = _run(["--worker", ref if who == "ref" else ROOT])
+        out = _run(["--worker", ref if who == "ref" else ROOT, "--groups", a.groups])
         runs[who].append(json.loads(out.strip().splitlines()[-1]))
         print(f"{who} run {len(runs[who])} done", flush=True)
     line = json.dumps({"card": card, "ref": ref, "runs": runs})

@@ -1,11 +1,11 @@
 """Build, load and count the port's hand-written kernels.
 
-The CUDA sources live in csrc/: field.cuh (the arithmetic), add_group.cuh
-(the complete add, the k-fold double and the affine+affine add as programs
-for a group of lanes, on carry-chain arithmetic), kernels.cuh (the point and ring kernels as templates over the
-coordinate ring),
-kernels.cu (the C interface, montmul and the sort) and one ring_*.cu per
-coordinate ring.  They are compiled at first use with nvcc for sm_90a, one
+The CUDA sources live in csrc/: field.cuh (the arithmetic, carry-chain Fq
+and the safegcd inverse included), add_group.cuh (the complete add, the
+k-fold double and the affine+affine add as programs for a group of lanes),
+kernels.cuh (the point and ring kernels as templates over the coordinate
+ring), kernels.cu (the C interface, montmul and the sort) and one
+ring_*.cu per coordinate ring.  They are compiled at first use with nvcc for sm_90a, one
 nvcc per source, all started together, and linked into one shared library
 with a plain C interface, loaded with ctypes, in build/<hash>/ (git-ignored),
 where the hash covers the sources and the compiler commands, so a checkout
@@ -233,16 +233,21 @@ def host_core():
 
 @functools.cache
 def field_params(spec) -> np.ndarray:
-    """(p, R mod p, n0) as the kernels' FieldParams: NL 32-bit limbs each
-    (8 for a 256-bit field, 12 for a 384-bit one; R = 2^(32 NL), the
-    port's R) and n0 = -p^-1 mod 2^32 (the 32-bit factor, not spec.n0inv's
-    16-bit one)."""
+    """The kernels' params (csrc/field.cuh::params_from, inv_params_from):
+    p and R mod p in NL 32-bit limbs (8 for a 256-bit field, 12 for a
+    384-bit one; R = 2^(32 NL), the port's R), n0 = -p^-1 mod 2^32 (the
+    32-bit factor, not spec.n0inv's 16-bit one), then for the safegcd
+    inverse R^3 mod p in NL 32-bit limbs, p in (32 NL + 29) // 30 30-bit
+    limbs and p^-1 mod 2^30."""
     nl = spec.nlimbs // 2
     if spec.nlimbs % 2 or nl not in (8, 12):
         raise ValueError(f"kernels take 16 or 24 16-bit limbs, not {spec.nlimbs} ({spec.name})")
-    limbs = lambda x: [(x >> (32 * i)) & 0xFFFFFFFF for i in range(nl)]
-    n0 = (-pow(spec.p, -1, 1 << 32)) % (1 << 32)
-    return np.array(limbs(spec.p) + limbs(spec.r_mod_p) + [n0], dtype=np.uint32)
+    limbs = lambda x, bits, n: [(x >> (bits * i)) & ((1 << bits) - 1) for i in range(n)]
+    p, R = spec.p, 1 << (32 * nl)
+    n0 = (-pow(p, -1, 1 << 32)) % (1 << 32)
+    return np.array(limbs(p, 32, nl) + limbs(R % p, 32, nl) + [n0]
+                    + limbs(pow(R, 3, p), 32, nl) + limbs(p, 30, (32 * nl + 29) // 30)
+                    + [pow(p, -1, 1 << 30)], dtype=np.uint32)
 
 
 def field_args(spec) -> tuple:

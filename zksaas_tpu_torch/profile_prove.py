@@ -8,7 +8,8 @@ prove, then one prove under torch.profiler (device activity only), and
 prints one JSON line: both proves' wall seconds (device-synchronised), the
 device-busy seconds (the union of all kernel intervals in the trace), the
 device's idle share over the profiled prove, device seconds
-and launches per kernel name, and the launches of the port's own kernels
+and launches per kernel name (the 25 names with the most device time, and
+every kernel of the port's), and the launches of the port's own kernels
 by their counters.  It also compiles every CUDA source once more with
 `-Xptxas -v` (all at once) and reports each kernel's registers, stack
 frame and spill bytes.  The
@@ -56,7 +57,16 @@ def _short(name: str) -> str:
     return head.strip()[:80]
 
 
+# the port's own kernels, by their short names (csrc/: the ring and point
+# kernels in namespace zk, montmul and the sort's passes in kernels.cu)
+PORT_KERNEL = re.compile(r"zk::|montmul_kernel|radix_\w+_kernel")
+TOP = 25
+
+
 def _kernel_table(trace_path: str) -> dict:
+    """Device-busy seconds and, per kernel name, device seconds and
+    launches: the TOP names by time, and every kernel of the port's
+    whatever its rank."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     kern = [e for e in events if e.get("cat") == "kernel"]
@@ -66,17 +76,20 @@ def _kernel_table(trace_path: str) -> dict:
         row[0] += e["dur"] * 1e-6
         row[1] += 1
     busy = _busy_seconds((e["ts"], e["ts"] + e["dur"]) for e in kern) * 1e-6
-    top = sorted(per.items(), key=lambda kv: -kv[1][0])
+    ranked = sorted(per.items(), key=lambda kv: -kv[1][0])
     return {
         "device_busy_s": busy,
         "kernels_in_trace": len(kern),
-        "by_name": [{"name": n, "device_s": s, "launches": c} for n, (s, c) in top[:25]],
+        "by_name": [{"name": n, "device_s": s, "launches": c}
+                    for i, (n, (s, c)) in enumerate(ranked) if i < TOP or PORT_KERNEL.search(n)],
     }
 
 
 def _kernel_label(mangled: str) -> str:
     """add_kernel<Fq2[12, nr -5]> and the like, from a mangled kernel name
-    (whose identifiers each follow their length)."""
+    (whose identifiers each follow their length), with a second template
+    argument after the ring (ring_mul_kernel<Fq2[8, nr -1], 3>: threads a
+    row)."""
     base, i = mangled, 0
     while i < len(mangled):
         m = re.match(r"\d+", mangled[i:])
@@ -88,10 +101,10 @@ def _kernel_label(mangled: str) -> str:
             base = name
             break
         i += m.end() + len(name)
-    m = re.search(r"RingFq(2?)ILi(\d+)E(?:Li(\d+)E)?", mangled)
+    m = re.search(r"RingFq(2?)ILi(\d+)E(?:Li(\d+)E)?EE(?:Li(\d+)E)?", mangled)
     if m:
-        return (f"{base}<Fq2[{m.group(2)}, nr -{m.group(3)}]>" if m.group(1)
-                else f"{base}<Fq[{m.group(2)}]>")
+        ring = f"Fq2[{m.group(2)}, nr -{m.group(3)}]" if m.group(1) else f"Fq[{m.group(2)}]"
+        return f"{base}<{ring}, {m.group(4)}>" if m.group(4) else f"{base}<{ring}>"
     m = re.search(r"montmul_kernelILi(\d+)E", mangled)
     return f"{base}<{m.group(1)}>" if m else base
 
