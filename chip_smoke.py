@@ -13,7 +13,9 @@
    at 16 points, the batch of the prove's binary scalar muls, and the
    double at the window fold's 8 points x 128 doublings and 128 x 8, timed
    as device time in a CUDA graph beside the empty kernel's (the launch
-   floor); ring_mul at 2^18, 2^17, 8,192 and 1,024 elements and at a
+   floor); the mixed add-if at the level-0 queries' 65,280 lanes on random
+   accumulators and on the main path's, every one at infinity, both in a
+   CUDA graph; ring_mul at 2^18, 2^17, 8,192 and 1,024 elements and at a
    ragged 3,001 and 2^17 + 1, ring_inv at 1,024, both in a CUDA graph and
    on 0, 1, the Montgomery one and p - 1 (in Fq2 beside 0) among random
    elements; the key sort also at 8 x 2^19 keys and on edge cases (one
@@ -29,9 +31,17 @@
    read just after, and asserts that the pairing check passes, that every
    kernel launched, in the whole run and in the timed prove, that the
    BLS12-381 prove went through the BLS12-381 instance of every point and
-   ring kernel, and that the prove launched ring_mul 128 and ring_inv 5
-   times;
-6. prints the kernels line and, last, the device line.
+   ring kernel, that the prove launched ring_mul 128, ring_inv 5 and
+   point_madd_if 5 times, and that the BN254 proof comes back equal from
+   its arkworks bytes (utils/serial.py);
+6. runs the libsnark extended witness (groth16/ext_wit.py::libsnark_h) of
+   the SHA-256 circuit at the flagship's m = 2^16 over LocalNet(8) on the
+   card and holds the unpacked h against the host's libsnark witness map
+   (groth16/local.py::witness_map); runs the blinded distributed partial
+   products (dist/dpp.py::d_pp with PpBlind) over 2^16 num/den pairs and
+   holds the unpacked result against the host's running product; each
+   with every launch count set to 0 just before and read just after;
+7. prints the kernels line and, last, the device line.
 
 Exits non-zero, before printing any result, when no CUDA device is present
 or any phase fails.  Imports nothing of JAX.
@@ -71,9 +81,11 @@ OPS_DIVSTEP, MULS_BATCH_LIMB = 28, 20
 # near the root (1,024); and a ragged width on each side of the kernel's
 # choice of layout (csrc/kernels.cuh::launch_ring_mul)
 RING_MUL_WIDTHS = (1 << 18, 1 << 17, 8192, 1024, 3001, (1 << 17) + 1)
-# launches of ring_mul and ring_inv in one flagship prove (four G1 MSMs and
-# one G2 MSM; both curves run the same windows)
-PROVE_RING_MUL, PROVE_RING_INV = 128, 5
+# launches of ring_mul, ring_inv and point_madd_if in one flagship prove
+# (four G1 MSMs and one G2 MSM; both curves run the same windows)
+PROVE_RING_MUL, PROVE_RING_INV, PROVE_MADD_IF = 128, 5, 5
+# the d_pp phase: num/den pairs, l = 2 to a packed chunk
+DPP_PAIRS = 1 << 16
 
 
 def log(msg):
@@ -351,11 +363,37 @@ def check_ring(curve):
     return rows
 
 
+def madd_inputs(curve, n, at_infinity=False):
+    """point_madd_if's inputs: n Jacobian accumulators (random Z, some at
+    infinity) and affine nodes equal to them, to their negatives, or other,
+    under a random cond; at_infinity: the main path's, every accumulator at
+    infinity (Pippenger's level-0 queries start from curve.infinity), the
+    same nodes and cond.  Also the Montgomery products and the coordinates
+    read that the inputs need: cond false reads P, P at infinity Z1 and Q,
+    the rest P and Q."""
+    gen = seeded("madd_if", curve.name, n)
+    P, Q, kind = affine_pairs(curve, n, gen)
+    pin = kind == 3
+    inf = curve.infinity((n,), "cuda")
+    A = tuple(torch.where(_v(pin, c), o, c).contiguous()
+              for c, o in zip(rescale(curve, P, gen), inf))
+    N = tuple(c.contiguous() for c in Q[:2])
+    cond = (torch.rand(n, generator=gen) < 0.5).to("cuda")
+    if at_infinity:
+        A, pin = tuple(c.contiguous() for c in inf), torch.ones_like(pin)
+    on = cond & ~pin
+    samex, samey = (same_coord(P[i], Q[i]) for i in range(2))
+    muls = (int((on & ~(samex & ~samey)).sum()) * MULS_MADD
+            + int((on & samex & ~samey).sum()) * MULS_MADD_NEG)
+    reads = 3 * (n - int(cond.sum())) + 3 * int((cond & pin).sum()) + 5 * int(on.sum())
+    return A, N, cond, muls, reads
+
+
 def check_affine_adds(curve, n_aadd, n_madd):
     """point_aadd over n_aadd affine pairs with P == Q, P == -Q and infinity
-    flags mixed in; point_madd_if over n_madd Jacobian accumulators (random
-    Z, some at infinity) and affine nodes equal to them, to their
-    negatives, or other, under a random cond."""
+    flags mixed in; point_madd_if over madd_inputs' n_madd lanes, random
+    and with every accumulator at infinity, and over a ragged 3,001, as
+    CUDA-graph device time."""
     from zksaas_tpu_torch import kernels
     from zksaas_tpu_torch.curves import point_ops as po
 
@@ -395,28 +433,20 @@ def check_affine_adds(curve, n_aadd, n_madd):
         plain_ms=cuda_ms(plain, 1), bound_ms=bms, bound_by=by)))
     del P, Q, inf1, inf2
 
-    gen = seeded("madd_if", curve.name, n_madd)
-    P, Q, kind = affine_pairs(curve, n_madd, gen)
-    pin = kind == 3
-    inf = curve.infinity((n_madd,), "cuda")
-    A = tuple(torch.where(_v(pin, c), o, c).contiguous()
-              for c, o in zip(rescale(curve, P, gen), inf))
-    N = tuple(c.contiguous() for c in Q[:2])
-    cond = (torch.rand(n_madd, generator=gen) < 0.5).to("cuda")
-    on = cond & ~pin
-    samex, samey = (same_coord(P[i], Q[i]) for i in range(2))
-    muls = (int((on & ~(samex & ~samey)).sum()) * MULS_MADD
-            + int((on & samex & ~samey).sum()) * MULS_MADD_NEG)
-    out = po.point_madd_if(spec, nc, A, N, cond)
-    ref = po.point_madd_if_plain(spec, nc, A, N, cond)
-    torch.cuda.synchronize()
-    bms, by = bound(6 * n_madd * coord + n_madd + int(cond.sum()) * 2 * coord,
-                    muls * ring_muls * opm)
-    rows.append(("point_madd_if", dict(
-        case=f"{curve.name} n={n_madd}", field=spec.name, max_abs_err=max_err(out, ref),
-        ms=cuda_ms(lambda: po.point_madd_if(spec, nc, A, N, cond), 10),
-        plain_ms=cuda_ms(lambda: po.point_madd_if_plain(spec, nc, A, N, cond), 1),
-        bound_ms=bms, bound_by=by)))
+    # and a ragged width: the kernel hands a block's rows to its groups in
+    # an order of their own, rows past the end last
+    for n, at_inf in ((n_madd, False), (n_madd, True), (3001, False)):
+        A, N, cond, muls, reads = madd_inputs(curve, n, at_inf)
+        out = po.point_madd_if(spec, nc, A, N, cond)
+        ref = po.point_madd_if_plain(spec, nc, A, N, cond)
+        torch.cuda.synchronize()
+        bms, by = bound((reads + 3 * n) * coord + n, muls * ring_muls * opm)
+        rows.append(("point_madd_if", dict(
+            case=f"{curve.name} n={n}" + (", every P at infinity" if at_inf else ""),
+            field=spec.name, max_abs_err=max_err(out, ref),
+            ms=graph_ms(lambda: po.point_madd_if(spec, nc, A, N, cond), 50),
+            plain_ms=cuda_ms(lambda: po.point_madd_if_plain(spec, nc, A, N, cond), 1),
+            bound_ms=bms, bound_by=by)))
     kernels.restore_launches(saved)
     return rows
 
@@ -502,6 +532,106 @@ def check_pippenger(curve, m):
                 msm_best_s=times["msm_best"][0], w4_sum_s=times["w4_sum"][0])
 
 
+def counted(fn):
+    """fn() with every launch count set to 0 just before it and read just
+    after: its result, seconds, and the counts by kernel and by field."""
+    from zksaas_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out, secs, dict(launches={k.name: k.launches for k in kernels.KERNELS},
+                           by_field={k.name: dict(k.by_field) for k in kernels.KERNELS})
+
+
+def run_libsnark_h():
+    """libsnark_h of the SHA-256 circuit (BN254, m = 2^16, n = 8, l = 2) over
+    LocalNet on the card, from the dealer's packed QAP and 7 masks; the
+    unpacked h must be the host's libsnark witness map, m - 1
+    coefficients, then a zero.  Returns its row, whether it agreed, and the
+    launch counts of the libsnark_h call alone (not of the dealer's)."""
+    from zksaas_tpu_torch.circom.sha256 import sha256_two_inputs
+    from zksaas_tpu_torch.comm.net import LocalNet
+    from zksaas_tpu_torch.fields.spec import BN254_FR
+    from zksaas_tpu_torch.groth16 import libsnark_h, libsnark_masks
+    from zksaas_tpu_torch.groth16.local import witness_map
+    from zksaas_tpu_torch.groth16.qap import qap_pack
+    from zksaas_tpu_torch.pss.pss import pss
+    from zksaas_tpu_torch.utils.rng import generator, split
+
+    r1cs, z, _ = sha256_two_inputs(1, 2, BN254_FR)
+    pp = pss(BN254_FR, 2)
+    ks = split(generator(11), 3)
+    q = qap_pack(pp, r1cs, z, ks[0], "cuda")
+    m = q.dom.n
+    masks = libsnark_masks(pp, m, ks[1], "cuda")
+    net = LocalNet(pp.n)
+    h, dev_s, counts = counted(lambda: libsnark_h(pp, q, masks, net, ks[2]))
+    got = list(pp.F.decode(pp.unpack(h.transpose(0, 1)).reshape(-1, pp.F.k)))
+    t0 = time.perf_counter()
+    want = witness_map(r1cs, z, "libsnark")
+    host_s = time.perf_counter() - t0
+    equal = got[: m - 1] == want and got[m - 1] == 0
+    return dict(case=f"sha256 bn254 m=2^{m.bit_length() - 1}, {pp.n} parties, l={pp.l}",
+                equal=equal, rounds=net.rounds, libsnark_h_s=dev_s,
+                host_witness_map_s=host_s), equal, counts
+
+
+def run_d_pp():
+    """d_pp with PpBlind over DPP_PAIRS random nonzero num/den pairs (BN254
+    Fr, 8 parties, l = 2) over LocalNet on the card; the unpacked result
+    must be the host's running product of num_i den_i^-1 mod p.  Returns as
+    run_libsnark_h does, the counts of the d_pp call alone."""
+    import random
+
+    from zksaas_tpu_torch.comm.net import LocalNet
+    from zksaas_tpu_torch.dist import PpBlind, d_pp
+    from zksaas_tpu_torch.dist.deg_red import DegRedMask
+    from zksaas_tpu_torch.fields.spec import BN254_FR
+    from zksaas_tpu_torch.pss.pss import pss
+    from zksaas_tpu_torch.utils.rng import generator, split
+
+    pp, p = pss(BN254_FR, 2), BN254_FR.p
+    F, nch = pp.F, DPP_PAIRS // 2
+    rng = random.Random(12)
+    nums = [rng.randrange(1, p) for _ in range(DPP_PAIRS)]
+    dens = [rng.randrange(1, p) for _ in range(DPP_PAIRS)]
+    ks = split(generator(13), 5)
+    shares = [pp.pack(F.encode(v, "cuda").reshape(nch, pp.l, F.k),
+                      pp.rand_pads(k, (nch,), "cuda")).transpose(0, 1).contiguous()
+              for v, k in ((nums, ks[0]), (dens, ks[1]))]
+    mask = DegRedMask.sample(pp, nch, ks[2], "cuda")
+    blind = PpBlind.sample(pp, nch, ks[3], "cuda")
+    net = LocalNet(pp.n)
+    out, dev_s, counts = counted(lambda: d_pp(pp, *shares, mask, net, ks[4], blind=blind))
+    got = list(F.decode(pp.unpack(out.transpose(0, 1)).reshape(-1, F.k)))
+    t0 = time.perf_counter()
+    want, acc = [], 1
+    for x, y in zip(nums, dens):
+        acc = acc * x * pow(y, -1, p) % p
+        want.append(acc)
+    host_s = time.perf_counter() - t0
+    equal = got == want
+    return dict(case=f"bn254 fr {DPP_PAIRS} pairs, {nch} chunks, {pp.n} parties, PpBlind",
+                equal=equal, rounds=net.rounds, d_pp_s=dev_s, host_product_s=host_s), equal, counts
+
+
+def serial_roundtrip(proof):
+    """The flagship's BN254 proof (sha256_e2e's detail.proof: affine points
+    as tuples of ints) to arkworks bytes and back: the hex and whether it
+    came back equal."""
+    from zksaas_tpu_torch.groth16.local import Proof
+    from zksaas_tpu_torch.utils.serial import proof_from_bytes, proof_to_bytes
+
+    pi = Proof(**proof)
+    blob = proof_to_bytes(pi)
+    back = proof_from_bytes(blob)
+    return blob.hex(), (back.a, back.b, back.c) == (pi.a, pi.b, pi.c)
+
+
 def card_peak_ops():
     """32-bit integer multiplies per second: SMs x 64 a clock x max SM clock."""
     smi = subprocess.run(
@@ -515,6 +645,7 @@ def card_peak_ops():
 
 def main():
     global PEAK_OPS
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
     smi = subprocess.run(
@@ -594,10 +725,31 @@ def main():
                   if n not in ("montmul", "sort_u32") and not by.get(fq)]
         if missed:
             raise SystemExit(f"the {fam} prove never launched the {fq} instance of {missed}")
-        if (prove["ring_mul"], prove["ring_inv"]) != (PROVE_RING_MUL, PROVE_RING_INV):
-            raise SystemExit(f"the {fam} prove launched ring_mul {prove['ring_mul']} and "
-                             f"ring_inv {prove['ring_inv']} times, not {PROVE_RING_MUL} and "
-                             f"{PROVE_RING_INV}")
+        want = dict(ring_mul=PROVE_RING_MUL, ring_inv=PROVE_RING_INV,
+                    point_madd_if=PROVE_MADD_IF)
+        if any(prove[k] != n for k, n in want.items()):
+            raise SystemExit(f"the {fam} prove launched {[(k, prove[k]) for k in want]}, "
+                             f"not {list(want.items())}")
+        if fam == "bn254":
+            blob, same = serial_roundtrip(res["detail"]["proof"])
+            log(f"serial bn254 proof {blob}")
+            if not same:
+                raise SystemExit("the BN254 proof did not survive its arkworks bytes")
+        torch.cuda.empty_cache()
+
+    # this slice's protocol paths, after the flagships, which earlier
+    # versions of this script timed with nothing of these run before them;
+    # each reads the counts of its own call, set to 0 after the dealer's
+    # set-up (which runs montmul too): both go through montmul alone
+    phases = {}
+    for name, run in (("libsnark_h", run_libsnark_h), ("d_pp", run_d_pp)):
+        row, ok, phases[name] = run()
+        launches = phases[name]["launches"]
+        log(f"{name} {json.dumps(dict(row, launches=launches))}")
+        if not ok:
+            raise SystemExit(f"{name} disagrees with the host: {row}")
+        if not launches["montmul"]:
+            raise SystemExit(f"{name} never launched montmul")
         torch.cuda.empty_cache()
 
     out = []
@@ -606,10 +758,10 @@ def main():
         head = rows[0]
         out.append({
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-            "launches": sum(p["launches"][k.name] for p in paths.values()),
-            "launches_by_path": {fam: {"total": p["launches"][k.name],
-                                       "by_field": p["by_field"][k.name]}
-                                 for fam, p in paths.items()},
+            "launches": sum(p["launches"][k.name] for p in (*paths.values(), *phases.values())),
+            "launches_by_path": {name: {"total": p["launches"][k.name],
+                                        "by_field": p["by_field"][k.name]}
+                                 for name, p in (*paths.items(), *phases.items())},
             "prove_launches": {fam: {"total": p["res"]["detail"]["launches"][k.name],
                                      "by_field": p["res"]["detail"]["launches_by_field"][k.name]}
                                for fam, p in paths.items()},
@@ -620,6 +772,7 @@ def main():
             "launch_floor_ms": floor,
             "cases": rows,
         })
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {

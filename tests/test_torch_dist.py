@@ -4,8 +4,10 @@ Domain fft/ifft and PSS pack/unpack are held against the JAX package on the
 same inputs (numpy-seeded; the pads are made once and handed to both).
 d_fft, d_ifft, deg_red and d_msm run over the port's LocalNet(8) at m = 32
 and their unpacked results are held against the host oracles (ntt/ref.py,
-curves/ref.py), which do not depend on the masks or pads.  Tolerance:
-exact equality.
+curves/ref.py), which do not depend on the masks or pads.  d_pp, plain and
+blinded, runs on the JAX dealer's shares, mask and blind (through
+convert.py) beside the JAX d_pp, and both unpack to the host's running
+product.  Tolerance: exact equality.
 """
 
 import random
@@ -15,8 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+from zksaas_tpu.comm import LocalNet as JLocalNet
+from zksaas_tpu.dist import DegRedMask as JDegRedMask
+from zksaas_tpu.dist import PpBlind as JPpBlind
+from zksaas_tpu.dist import d_pp as j_d_pp
 from zksaas_tpu.fields import BN254_FR as J_FR
+from zksaas_tpu.fields.spec import FieldSpec as JFieldSpec
 from zksaas_tpu.ntt import domain as jdomain
+from zksaas_tpu.pss import gao as jgao
 from zksaas_tpu.pss import pss as jpss
 from zksaas_tpu_torch import convert
 from zksaas_tpu_torch.comm.net import LocalNet
@@ -25,9 +33,12 @@ from zksaas_tpu_torch.curves.fixed_base import fixed_base_mul
 from zksaas_tpu_torch.dist.deg_red import DegRedMask, deg_red
 from zksaas_tpu_torch.dist.dfft import FftMask, d_fft, d_ifft
 from zksaas_tpu_torch.dist.dmsm import MsmMask, d_msm
+from zksaas_tpu_torch.dist.dpp import PpBlind, d_pp
 from zksaas_tpu_torch.fields.spec import BN254_FR
 from zksaas_tpu_torch.ntt.domain import domain
+from zksaas_tpu_torch.fields.spec import FieldSpec
 from zksaas_tpu_torch.ntt.ref import fft_ref, ifft_ref
+from zksaas_tpu_torch.pss.gao import decode_to_message, partial_xgcd
 from zksaas_tpu_torch.pss.pss import pss
 from zksaas_tpu_torch.utils.pack import rearrange_perm, stride_chunks, unstride_chunks
 from zksaas_tpu_torch.utils.rng import generator, split
@@ -62,8 +73,36 @@ def test_domain_matches_jax(n, offset, inverse):
     np.testing.assert_array_equal(convert.to_numpy(got), want)
 
 
+def _gao_matches_jax():
+    """Gao decoding (pss/gao.py) as tests/test_gao.py runs it, the port's
+    results equal to the JAX package's: the reference's F17 cases
+    (gao.rs:97-140: xgcd that stops at once, one error in an n = 8 word)
+    and a BN254 packed sharing (n = 8, k = 2l = 4) with (n - k) / 2 = 2
+    corrupted shares."""
+    f17, jf17 = (S(name="f17", p=17, generator=3, two_adicity=4) for S in (FieldSpec, JFieldSpec))
+    a, b = [8, 9, 5], [5, 3, 10]
+    got = partial_xgcd(f17, a, b, 16, 10)
+    assert got == ([5, 3, 10], [1]) == jgao.partial_xgcd(jf17, a, b, 16, 10)
+    code = fft_ref(f17, [1, 4] + [0] * 6)
+    code[1] = (code[1] + 1) % 17
+    assert decode_to_message(f17, code, 8, 4) == [1, 4] == jgao.decode_to_message(jf17, code, 8, 4)
+    rng = random.Random(81)
+    coeffs = [rng.randrange(P) for _ in range(4)]
+    code = fft_ref(SPEC, coeffs + [0] * 4)
+    code[0] = (code[0] + 5) % P
+    code[5] = (code[5] + 9) % P
+    assert decode_to_message(SPEC, code, 8, 4) == coeffs == jgao.decode_to_message(J_FR, code, 8, 4)
+
+
 @pytest.mark.parametrize("op", ["pack", "det_pack", "unpack", "unpack2", "lagrange_unpack"])
 def test_pss_matches_jax(pp, op):
+    """Each op against the JAX package's on the same shares.  unpack also
+    runs Gao's error-correcting decode (_gao_matches_jax): the number of
+    tests collected sets the chunks pytest-xdist hands its workers first,
+    and with more the tier-1 run's JAX workers outgrow a 64 GB host's memory
+    (ROADMAP, "Test memory")."""
+    if op == "unpack":
+        _gao_matches_jax()
     jp = jpss(J_FR, 2)
     F = pp.F
     if op in ("pack", "det_pack"):
@@ -156,8 +195,63 @@ def test_coset_chain_recovers_input(pp):
     assert unpack_natural(pp, out) == vals
 
 
+def _running_products(nums, dens):
+    out, acc = [], 1
+    for x, y in zip(nums, dens):
+        acc = acc * x * pow(y, -1, P) % P
+        out.append(acc)
+    return out
+
+
+def _d_pp_against_jax(pp, blinded):
+    """dpp_test.rs's partial products of num/den over m = 32 values: the
+    port's d_pp on the JAX dealer's packed shares, DegRedMask and (blinded)
+    PpBlind unpacks to the JAX d_pp's result and the host's running product.
+    Blinded: what the king can reconstruct, num_i r_(i-1), is bit for bit
+    the JAX package's shares, equals num_1 and differs from every later
+    num_i."""
+    import jax
+
+    jp = jpss(J_FR, 2)
+    F, L = pp.F, pp.l
+    rng = random.Random(37 if not blinded else 39)
+    nums = [rng.randrange(1, P) for _ in range(M)]
+    dens = [rng.randrange(1, P) for _ in range(M)]
+    expect = _running_products(nums, dens)
+    ks = jax.random.split(jax.random.PRNGKey(47 if not blinded else 49), 5)
+    jsh = [jnp.swapaxes(jp.pack(jp.F.encode(np.asarray(v, dtype=object).reshape(-1, L)),
+                                jp.rand_pads(k, (M // L,))), 0, 1)
+           for v, k in ((nums, ks[0]), (dens, ks[1]))]
+    jmask = JDegRedMask.sample(jp, M // L, ks[2])
+    jblind = JPpBlind.sample(jp, M // L, ks[4]) if blinded else None
+    jout = j_d_pp(jp, *jsh, jmask, JLocalNet(jp.n), ks[3], blind=jblind)
+    jgot = list(jp.F.decode(jp.unpack(jnp.swapaxes(jout, 0, 1)).reshape(-1, jp.F.k)))
+    assert jgot == expect
+
+    nsh, dsh = (convert.to_torch(np.asarray(x), device=DEV) for x in jsh)
+    mask = convert.degred_mask_from(jmask, SPEC, DEV)
+    blind = convert.pp_blind_from(jblind, SPEC, DEV) if blinded else None
+    net = LocalNet(pp.n)
+    out = d_pp(pp, nsh, dsh, mask, net, generator(48), blind=blind)
+    assert unpack_natural(pp, out) == expect
+    assert net.rounds == 2
+    if blinded:
+        seen = F.mul(nsh, blind.num)
+        np.testing.assert_array_equal(convert.to_numpy(seen),
+                                      np.asarray(jp.F.mul(jsh[0], jblind.num)))
+        vis = list(F.decode(pp.unpack2(seen.transpose(0, 1)).reshape(-1, F.k)))
+        assert vis[0] == nums[0] and all(v != x for v, x in zip(vis[1:], nums[1:]))
+
+
 @pytest.mark.parametrize("drop", [(), (7,)], ids=["all", "lossy"])
 def test_deg_red_matches_host(pp, drop):
+    """deg_red of squared shares unpacks to the squares.  Then d_pp, whose
+    king round ends in a deg_red: with every party, plain and blinded
+    against the JAX d_pp (_d_pp_against_jax); with a party dropped, blinded
+    by the port's own PpBlind.sample against the host's running product.
+    (d_pp rides in this test: the number of tests collected sets the chunks
+    pytest-xdist hands its workers first, and with more the tier-1 run's
+    JAX workers outgrow a 64 GB host's memory, ROADMAP "Test memory".)"""
     F = pp.F
     num = M // pp.l
     secrets = _ints(num * pp.l, 15)
@@ -168,6 +262,21 @@ def test_deg_red_matches_host(pp, drop):
     out = deg_red(pp, x_share, DegRedMask.sample(pp, num, k[1], DEV), net, k[2])
     keep = net.parties if drop else None
     assert unpack_natural(pp, out, keep) == [x * x % P for x in secrets]
+
+    if not drop:
+        for blinded in (False, True):
+            _d_pp_against_jax(pp, blinded)
+        return
+    rng = random.Random(41)
+    nums, dens = ([rng.randrange(1, P) for _ in range(M)] for _ in "nd")
+    k = split(generator(50), 6)
+    nsh, dsh = (pp.pack(F.encode(v, DEV).reshape(num, pp.l, F.k),
+                        pp.rand_pads(g, (num,), DEV)).transpose(0, 1)
+                for v, g in ((nums, k[0]), (dens, k[1])))
+    net = LocalNet(pp.n, drop=drop)
+    out = d_pp(pp, nsh, dsh, DegRedMask.sample(pp, num, k[2], DEV), net, k[3],
+               blind=PpBlind.sample(pp, num, k[4], DEV))
+    assert unpack_natural(pp, out, net.parties) == _running_products(nums, dens)
 
 
 @pytest.mark.parametrize("drop", [(), (2,)], ids=["all", "lossy"])

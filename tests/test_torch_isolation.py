@@ -1,8 +1,9 @@
 """The port stands alone and runs on the card by default.
 
-A fresh interpreter imports every module of zksaas_tpu_torch and must end
-up with neither jax nor zksaas_tpu loaded.  The entry points (the flagship
-over BN254 and BLS12-381, msm_best over BN254 and BLS12-381, ...)
+A fresh interpreter imports every module of zksaas_tpu_torch (d_pp, Gao and
+serial among them) and must end up with neither jax nor zksaas_tpu loaded.
+The entry points (the flagship over BN254 and BLS12-381, msm_best over
+BN254 and BLS12-381, the dealer's libsnark masks and d_pp blinds, ...)
 must refuse to run without a CUDA device unless the caller asks for
 device="cpu", and
 chip_smoke.py must fail, printing no result, both without a card and in a
@@ -36,6 +37,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for n in names:
     importlib.import_module(n)
 assert len(names) > 30, names
+new = {"zksaas_tpu_torch.dist.dpp", "zksaas_tpu_torch.pss.gao", "zksaas_tpu_torch.utils.serial"}
+assert new <= set(names), sorted(new - set(names))
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "zksaas_tpu.")) or m == "zksaas_tpu")
 assert not bad, bad
 print("ok", len(names))
@@ -50,6 +53,8 @@ from zksaas_tpu_torch import sha256_e2e
 from zksaas_tpu_torch.circom.r1cs import ConstraintBuilder
 from zksaas_tpu_torch.curves.curve import curve_g1
 from zksaas_tpu_torch.curves.pippenger import msm_best
+from zksaas_tpu_torch.dist import PpBlind
+from zksaas_tpu_torch.groth16 import libsnark_masks
 from zksaas_tpu_torch.fields.sortperm import sort_u32
 from zksaas_tpu_torch.fields.field import field
 from zksaas_tpu_torch.fields.spec import BLS12_381_FR, BN254_FR
@@ -77,10 +82,16 @@ ENTRY_POINTS = {
 }
 
 
+# more of the dealer's entry points, checked beside qap_pack
+DEALER = ("PpBlind.sample(pp, 4, generator(1){})", "libsnark_masks(pp, 8, generator(1){})")
+
+
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_entry_points_need_a_gpu_unless_cpu_is_asked(name):
-    call = ENTRY_POINTS[name]
-    code = _SETUP + f"""
+    calls = (ENTRY_POINTS[name],) + (DEALER if name == "qap_pack" else ())
+    code = _SETUP
+    for call in calls:
+        code += f"""
 try:
     {call.format("")}
 except RuntimeError as e:
@@ -88,8 +99,8 @@ except RuntimeError as e:
 else:
     raise SystemExit("ran without a GPU")
 """
-    if not name.startswith("sha256_e2e"):  # the full flagship is too big for a CPU test
-        code += call.format(", device='cpu'") + "\n"
+        if not name.startswith("sha256_e2e"):  # the full flagship is too big for a CPU test
+            code += call.format(", device='cpu'") + "\n"
     res = _run(code + "print('ok')\n")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"

@@ -265,19 +265,49 @@ def test_core_aadd_matches_plain(core, ncoord):
         assert torch.equal(o, r)
 
 
-@pytest.mark.parametrize("ncoord", [1, 2], ids=["g1", "g2"])
-def test_core_madd_if_matches_plain(core, ncoord):
-    C = curve_g1() if ncoord == 1 else curve_g2()
-    n = 100
-    P, Q = _points(C, n, seed=70 + ncoord)
+def madd_core_inputs(C, n, seed, kind):
+    """Jacobian accumulators P, affine nodes Q never at infinity and a cond
+    for the mixed add-if: "mix", _points' pairs (P == Q with another Z,
+    P == -Q, P at infinity) under a random cond; "p_inf", every P at
+    infinity under a random cond, as Pippenger's level-0 queries give them;
+    "special", every fourth lane P == Q, the next P == -Q, the next cond
+    false, the last a random pair."""
+    P, Q = _points(C, n, seed)
     fin = ~C.is_inf(Q)
     Qa = C.to_affine(Q)[:2]  # the node is never at infinity: fold it into cond
-    cond = torch.from_numpy(np.random.default_rng(5).random(n) < 0.7) & fin
-    out = tuple(torch.empty_like(P[0]) for _ in range(3))
+    cond = torch.from_numpy(np.random.default_rng(seed).random(n) < 0.7) & fin
+    if kind == "p_inf":
+        P = tuple(c.contiguous() for c in C.infinity((n,), "cpu"))
+    elif kind == "special":
+        rng = random.Random(seed)
+        pool = [C.ref.rand(rng) for _ in range(8)]
+        Qp = [pool[rng.randrange(8)] for _ in range(n)]
+        Pp = [q if i % 4 == 0 else C.ref.neg(q) if i % 4 == 1 else pool[rng.randrange(8)]
+              for i, q in enumerate(Qp)]
+        X, Y, Z = C.encode(Pp, device="cpu")  # Z = 1: give each point a random Z
+        z = C.R.F.rand(torch.Generator().manual_seed(seed + 3), (n,) + C.R.coord_shape[:-1],
+                       device="cpu")
+        z2 = C.R.square(z)
+        P = (C.R.mul(X, z2), C.R.mul(Y, C.R.mul(z2, z)), C.R.mul(Z, z))
+        Qa = C.encode(Qp, device="cpu")[:2]
+        cond = torch.tensor([i % 4 != 2 for i in range(n)])
+    return P, Qa, cond
+
+
+@pytest.mark.parametrize("ncoord", [1, 2], ids=["g1", "g2"])
+def test_core_madd_if_matches_plain(core, ncoord):
+    """The grouped mixed add-if, lanes looped serially, == the plain
+    version on each of madd_core_inputs' kinds."""
+    C = curve_g1() if ncoord == 1 else curve_g2()
+    n = 100
     nl, nr, prm = kernels.field_args(C.spec)
-    core.zkc_point_madd_if(nl, nr, ncoord, *map(_ptr, (*P, *Qa, cond, *out)), n, prm)
-    for o, r in zip(out, point_ops.point_madd_if_plain(C.spec, ncoord, P, Qa, cond)):
-        assert torch.equal(o, r)
+    for kind in ("mix", "p_inf", "special"):
+        P, Qa, cond = madd_core_inputs(C, n, 70 + ncoord, kind)
+        out = tuple(torch.empty_like(P[0]) for _ in range(3))
+        assert core.zkc_point_madd_if(nl, nr, ncoord, *map(_ptr, (*P, *Qa, cond, *out)), n,
+                                      prm) == 0
+        for o, r in zip(out, point_ops.point_madd_if_plain(C.spec, ncoord, P, Qa, cond)):
+            assert torch.equal(o, r), kind
 
 
 def test_core_sort_matches_plain(core):

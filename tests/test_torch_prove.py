@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from zksaas_tpu.circom import ConstraintBuilder as JConstraintBuilder
+from zksaas_tpu.comm import LocalNet as JLocalNet
 from zksaas_tpu.curves import curve_g1 as j_curve_g1
 from zksaas_tpu.curves import curve_g2 as j_curve_g2
 from zksaas_tpu.dist.deg_red import DegRedMask as JDegRedMask
@@ -29,16 +30,21 @@ from zksaas_tpu.dist.dmsm import MsmMask as JMsmMask
 from zksaas_tpu.fields import BN254_FR as J_FR
 from zksaas_tpu.groth16 import local as jlocal
 from zksaas_tpu.groth16.ext_wit import circom_masks as j_circom_masks
+from zksaas_tpu.groth16.ext_wit import libsnark_h as j_libsnark_h
+from zksaas_tpu.groth16.ext_wit import libsnark_masks as j_libsnark_masks
 from zksaas_tpu.groth16.prove import ProveMasks as JProveMasks
 from zksaas_tpu.groth16.proving_key import PackedProvingKeyShare as JPackedProvingKeyShare
 from zksaas_tpu.groth16.qap import qap_pack as j_qap_pack
+from zksaas_tpu.curves import ref as jref
 from zksaas_tpu.pss import pss as jpss
+from zksaas_tpu.utils import serial as jserial
 from zksaas_tpu_torch import convert
 from zksaas_tpu_torch.circom.r1cs import ConstraintBuilder
+from zksaas_tpu_torch.curves import ref as cref
 from zksaas_tpu_torch.comm.net import LocalNet
 from zksaas_tpu_torch.curves.curve import curve_g1, curve_g2
 from zksaas_tpu_torch.fields.spec import BN254_FR
-from zksaas_tpu_torch.groth16.ext_wit import circom_h
+from zksaas_tpu_torch.groth16.ext_wit import circom_h, libsnark_h
 from zksaas_tpu_torch.groth16.local import Proof, verify
 from zksaas_tpu_torch.groth16.prove import (
     ProveMasks,
@@ -53,6 +59,7 @@ from zksaas_tpu_torch.groth16.setup_device import (
     vk_from_scalars,
 )
 from zksaas_tpu_torch.pss.pss import pss
+from zksaas_tpu_torch.utils import serial
 from zksaas_tpu_torch.utils.rng import generator, split
 
 from test_torch_heap import release_heap  # noqa: F401  (autouse)
@@ -88,7 +95,51 @@ def case():
                 r1cs=r1cs, z=z, ss=ss, vk=vk_from_scalars(ss))
 
 
+def _both_ways(write, jwrite, read, jread, values, size):
+    """Each value's bytes from the port equal the JAX package's, and each
+    side reads them back."""
+    for v in values:
+        data = write(v)
+        assert len(data) == size and data == jwrite(v)
+        assert read(data) == v and jread(data) == v
+
+
+def _serial_matches_jax(proof):
+    """utils/serial.py's round trips as tests/test_serial.py runs them,
+    byte for byte against the JAX package: Fr (32 bytes; a non-canonical
+    value refused), compressed BN254 G1 (32) and G2 (64) points and
+    infinity (a point and its negative differ only in the flag bit), and
+    the proof (128)."""
+    rng = random.Random(91)
+    frs = [0, 1, BN254_FR.p - 1] + [rng.randrange(BN254_FR.p) for _ in range(8)]
+    _both_ways(lambda x: serial.fr_to_bytes(BN254_FR, x), lambda x: jserial.fr_to_bytes(J_FR, x),
+               lambda d: serial.fr_from_bytes(BN254_FR, d),
+               lambda d: jserial.fr_from_bytes(J_FR, d), frs, 32)
+    with pytest.raises(ValueError):
+        serial.fr_from_bytes(BN254_FR, BN254_FR.p.to_bytes(32, "little"))
+    for g, size, seed in (("g1", 32, 92), ("g2", 64, 93)):
+        C, J = getattr(cref, f"BN254_{g.upper()}"), getattr(jref, f"BN254_{g.upper()}")
+        rng = random.Random(seed)
+        pts = [C.rand(rng) for _ in range(6)] + [None]
+        write, jwrite = getattr(serial, f"{g}_to_bytes"), getattr(jserial, f"{g}_to_bytes")
+        read, jread = getattr(serial, f"{g}_from_bytes"), getattr(jserial, f"{g}_from_bytes")
+        _both_ways(lambda P: write(C, P), lambda P: jwrite(J, P), lambda d: read(C, d),
+                   lambda d: jread(J, d), pts, size)
+        for P in pts[:-1]:
+            data, neg = write(C, P), write(C, C.neg(P))
+            assert neg[:-1] == data[:-1] and neg != data
+    blob = serial.proof_to_bytes(proof)
+    assert len(blob) == 128 and blob == jserial.proof_to_bytes(proof)
+    for back in (serial.proof_from_bytes(blob), jserial.proof_from_bytes(blob)):
+        assert (back.a, back.b, back.c) == (proof.a, proof.b, proof.c)
+
+
 def test_distributed_prove_equals_local_prove(case):
+    """The unpacked distributed proof equals the local one and verifies;
+    then it and other values go through the arkworks byte formats
+    (_serial_matches_jax; here rather than in a test of their own, as the
+    number of tests collected sets the chunks pytest-xdist hands its
+    workers first, ROADMAP "Test memory")."""
     r1cs, z, ss, vk = case["r1cs"], case["z"], case["ss"], case["vk"]
     assert vk.delta_g1 == case["keys"].delta_g1  # same CRS from the same seed
     pp = pss(BN254_FR, 2)
@@ -115,13 +166,17 @@ def test_distributed_prove_equals_local_prove(case):
     assert verify(vk, z[1 : r1cs.num_instance], Proof(a=a, b=b, c=c))
     assert jlocal.verify(case["keys"], case["jz"][1 : r1cs.num_instance],
                          jlocal.Proof(a=a, b=b, c=c))
+    _serial_matches_jax(Proof(a=a, b=b, c=c))
 
 
 def test_jax_dealer_outputs_through_convert(case):
     """The JAX dealer's packed QAP and circom_h masks, converted, drive the
     port's extended-witness round; its unpacked h equals the JAX oracle's
     witness_map.  CRS and ProveMasks survive the trip through the JAX
-    dataclasses bit for bit."""
+    dataclasses bit for bit.  Then libsnark_h on the same QAP and the JAX
+    dealer's 7 libsnark_masks (convert.fft_masks_from): its unpacked h
+    equals the JAX libsnark_h's and the libsnark witness map, m - 1
+    coefficients and then a zero."""
     jpp, pp = jpss(J_FR, 2), pss(BN254_FR, 2)
     jr1cs, jz = case["jr1cs"], case["jz"]
     ks = jax.random.split(jax.random.PRNGKey(5), 2)
@@ -153,3 +208,18 @@ def test_jax_dealer_outputs_through_convert(case):
         for x, y in zip(getattr(crs, name), getattr(crs2, name)):
             assert torch.equal(x, y)
     assert crs2.beta_g2 == vk.beta_g2
+
+    # the libsnark variant of the round on the JAX dealer's QAP and 7 masks
+    ks = jax.random.split(jax.random.PRNGKey(8), 2)
+    m = jq.dom.n
+    jmasks = j_libsnark_masks(jpp, m, ks[0])
+    jh = j_libsnark_h(jpp, jq, jmasks, JLocalNet(jpp.n), ks[1])
+    want = list(jpp.F.decode(jpp.unpack(jax.numpy.swapaxes(jh, 0, 1)).reshape(-1, jpp.F.k)))
+    net = LocalNet(pp.n)
+    h_share = libsnark_h(pp, q, convert.fft_masks_from(jmasks, BN254_FR, DEV), net, generator(9))
+    got = list(pp.F.decode(pp.unpack(h_share.transpose(0, 1)).reshape(-1, pp.F.k)))
+    assert got == want
+    assert got[: m - 1] == jlocal.witness_map(jr1cs, jz, "libsnark")
+    assert got[m - 1] == 0  # (ab - c) / Z has degree m - 2
+    assert net.rounds == 3
+

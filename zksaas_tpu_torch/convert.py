@@ -10,7 +10,9 @@ holds both can hand the same CRS, shares and masks to both.
   field arrays     to_torch / to_numpy
   point tuples     points_to_torch / points_to_numpy
   PackedProvingKeyShare, PackedQAPShare, FftMask, DegRedMask, MsmMask,
-  ProveMasks       *_from / *_to_numpy (a dict of the dataclass's fields)
+  PpBlind, ProveMasks
+                   *_from / *_to_numpy (a dict of the dataclass's fields);
+                   fft_masks_from for a list (libsnark_h's 7 masks)
 
 The *_from functions take the circuit's scalar field spec (BN254, BLS12-381
 or BLS12-377 Fr) and check every array's limb count against it: K limbs for
@@ -30,6 +32,7 @@ from .device import resolve_device
 from .dist.deg_red import DegRedMask
 from .dist.dfft import FftMask
 from .dist.dmsm import MsmMask
+from .dist.dpp import PpBlind
 from .fields.spec import FIELDS
 from .groth16.local import curve_family
 from .groth16.prove import ProveMasks
@@ -108,9 +111,19 @@ def fft_mask_from(src, spec, device="cuda") -> FftMask:
     return FftMask(to_torch(src.in_mask, device, k), to_torch(src.out_mask, device, k))
 
 
+def fft_masks_from(srcs, spec, device="cuda") -> list:
+    """A list of FftMasks, as libsnark_masks and circom_masks return them."""
+    return [fft_mask_from(m, spec, device) for m in srcs]
+
+
 def degred_mask_from(src, spec, device="cuda") -> DegRedMask:
     k = spec.nlimbs
     return DegRedMask(to_torch(src.in_mask, device, k), to_torch(src.out_mask, device, k))
+
+
+def pp_blind_from(src, spec, device="cuda") -> PpBlind:
+    k = spec.nlimbs
+    return PpBlind(to_torch(src.num, device, k), to_torch(src.den, device, k))
 
 
 def msm_mask_from(src, spec, device="cuda") -> MsmMask:
@@ -121,7 +134,7 @@ def msm_mask_from(src, spec, device="cuda") -> MsmMask:
 
 def prove_masks_from(src, spec, device="cuda") -> ProveMasks:
     return ProveMasks(
-        fft_masks=[fft_mask_from(m, spec, device) for m in src.fft_masks],
+        fft_masks=fft_masks_from(src.fft_masks, spec, device),
         degred_mask=degred_mask_from(src.degred_mask, spec, device),
         g1_msm_masks=[msm_mask_from(m, spec, device) for m in src.g1_msm_masks],
         g2_msm_mask=msm_mask_from(src.g2_msm_mask, spec, device),
@@ -129,7 +142,7 @@ def prove_masks_from(src, spec, device="cuda") -> ProveMasks:
 
 
 def mask_to_numpy(mask) -> dict:
-    """FftMask, DegRedMask or MsmMask -> {in_mask, out_mask} as numpy."""
+    """FftMask, DegRedMask, MsmMask or PpBlind -> its fields as numpy."""
     conv = points_to_numpy if isinstance(mask, MsmMask) else to_numpy
     return {f.name: conv(getattr(mask, f.name)) for f in dataclasses.fields(mask)}
 

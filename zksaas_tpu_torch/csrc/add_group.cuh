@@ -1,29 +1,30 @@
-// The grouped point programs of kernels 2-4 and 7 (point_add / point_add_if,
-// point_double(k), point_aadd): each runs on a group of G lanes that share
-// one point, on the carry-chain Fq arithmetic of field.cuh (cc_mul, cc_add,
-// cc_sub).
+// The grouped point programs of kernels 2-4, 7 and 8 (point_add /
+// point_add_if, point_double(k), point_aadd, point_madd_if): each runs on a
+// group of G lanes that share one point, on the carry-chain Fq arithmetic of
+// field.cuh (cc_mul, cc_add, cc_sub).  They are the port's only point
+// arithmetic.
 //
 // Replaces the one-thread-per-point formulas of zksaas_tpu/curves/fused.py:
 // _add_core (_add_call, _add_select_call), _double_core applied k times
-// (_double_call) and _aadd_core (_aadd_call).  The main path adds and
-// doubles 8-128 points a launch (the binary scalar muls of the king's
-// mat-vecs and of the r/s shares, one double and one add-if per scalar
-// bit; Pippenger's window fold, 8-128 points doubled 8-128 times), so such
-// a launch costs the latency of one point's chain of dependent Fq products:
-// 16 (add) or 7 (double) in G1, 48 or 21 in G2, in series on one thread.
-// Here the G lanes of a group compute the independent products of each
-// level of the formula's dependency graph at once (in G2 the three Fq
-// products of each Karatsuba Fq2 product are separate items), so an add is
-// 5 products deep in G1 and 8-10 in G2, a doubling and an affine+affine add
-// 3.  Pippenger's tree level 1 runs the affine+affine add over 2^21-2^22
-// pairs, where it is bound by throughput: there the lanes keep each
-// thread's live state to one product's operands, so no instance needs the
-// 255 registers and spills of a whole point per thread.  The lanes pass
-// operands through shared memory (one slot array per group, synchronised
-// with __syncwarp over the group's lanes).  A group decides the special
-// cases (infinity operands and flags, cond false, P == Q, P == -Q) on
-// values every lane reads, so it never diverges; P == Q runs the doubling
-// program.
+// (_double_call), _aadd_core (_aadd_call) and _madd_core (_madd_select_call).
+// The main path adds and doubles 8-128 points a launch (the binary scalar
+// muls of the king's mat-vecs and of the r/s shares, one double and one
+// add-if per scalar bit; Pippenger's window fold, 8-128 points doubled 8-128
+// times), so such a launch costs the latency of one point's chain of
+// dependent Fq products: 16 (add) or 7 (double) in G1, 48 or 21 in G2, in
+// series on one thread.  Here the G lanes of a group compute the independent
+// products of each level of the formula's dependency graph at once (in G2
+// the three Fq products of each Karatsuba Fq2 product are separate items),
+// so an add is 5 products deep in G1 and 8-10 in G2, a mixed add 5, a
+// doubling and an affine+affine add 3.  Pippenger's tree level 1 runs the
+// affine+affine add over 2^21-2^22 pairs, where it is bound by throughput:
+// there the lanes keep each thread's live state to one product's operands,
+// so no instance needs the 255 registers and spills of a whole point per
+// thread.  The lanes pass operands through shared memory (one slot array
+// per group, synchronised with __syncwarp over the group's lanes).  A group
+// decides the special cases (infinity operands and flags, cond false,
+// P == Q, P == -Q) on values every lane reads, so it never diverges; P == Q
+// runs the doubling program.
 //
 // On the host (g++, csrc/host_core.cpp) the same programs run with the
 // lanes looped serially and the carry flag emulated in C, so the CPU tests
@@ -41,9 +42,10 @@ namespace zk {
 // the grouped point programs
 // ---------------------------------------------------------------------------
 
-// Lanes per point of the complete add and the double: 4 in G1 (the widest
-// level has 4 products in the add, 3 in the double), 8 in G2 (12 and 9 Fq
-// products).
+// Lanes per point of the complete add, the double and the mixed add: 4 in
+// G1 (the widest level has 4 products in the add, 3 in the double and the
+// mixed add), 8 in G2 (12 and 9 Fq products).  (The mixed add with 2 lanes
+// in G1 or 4 in G2 was slower on the main path's inputs: PERF.md.)
 template <class R>
 constexpr int point_lanes() {
     return R::LIMBS16 == 2 * R::NL ? 4 : 8;
@@ -79,6 +81,13 @@ enum Slot : int {
     S_AH = S_A, S_AR = S_B, S_AH2 = S_C, S_AI = S_D, S_ARSQ = S_U1, S_AJ = S_U2,
     S_AV = S_S1, S_AW = S_S2, S_AY3A = S_A, S_ASJ = S_C,
     N_AADD_SLOTS = N_DBL_SLOTS,
+    // mixed: Z1Z1 = Z1^2, T = y2 Z1, U2 = x2 Z1Z1, S2 = T Z1Z1, H = U2 - X1,
+    // r = 2 (S2 - Y1), 2H, I = (2H)^2, r^2, Z1 H, J = H I, V = X1 I,
+    // W = V - X3, r W, Y1 J; its P == Q branch runs the doubling
+    S_MZZ = S_A, S_MT = S_B, S_MU2 = S_C, S_MS2 = S_D, S_MH = S_U1, S_MR = S_U2,
+    S_MH2 = S_S1, S_MI = S_A, S_MRSQ = S_B, S_MZH = S_C, S_MJ = S_D, S_MV = S_S2,
+    S_MW = S_A, S_MY3A = S_B, S_MSJ = S_C,
+    N_MADD_SLOTS = N_DBL_SLOTS,
 };
 
 // G lanes sharing one point, over NS ring slots of shared memory.
@@ -180,9 +189,9 @@ struct Group {
         });
     }
 
-    // (S_X1, S_Y1, S_Z1) doubled in place: pt_double's dbl-2009-l, 3
-    // products deep.  The input is read only by the first two steps, so the
-    // later ones write the result over it.
+    // (S_X1, S_Y1, S_Z1) doubled in place: fused.py::_double_core's
+    // dbl-2009-l, 3 products deep.  The input is read only by the first two
+    // steps, so the later ones write the result over it.
     ZK_HD void dbl() {
         static_assert(NS >= N_DBL_SLOTS, "the doubling needs N_DBL_SLOTS slots");
         muls<3>({S_X1, S_Y1, S_Y1}, {S_X1, S_Y1, S_Z1}, {S_DA, S_DB, S_DYZ});
@@ -318,6 +327,59 @@ struct Group {
         return S_X1;
     }
 
+    // Jacobian P (slots S_X1, S_Y1, S_Z1; Z1 != 0) + affine Q = (x2, y2)
+    // (S_X2, S_Y2), complete, as fused.py::_madd_core computes it: P == Q
+    // doubles Q lifted to (x2, y2, 1), P == -Q gives (one, one, zero).  (P
+    // at infinity is run_madd_if's.)  11 ring products, 5 levels of 2-3.
+    // Returns the slot of the result's X.
+    ZK_HD int madd() {
+        static_assert(NS >= N_MADD_SLOTS, "the mixed add needs N_MADD_SLOTS slots");
+        // Z1Z1 = Z1^2, T = y2 Z1; U2 = x2 Z1Z1, S2 = T Z1Z1
+        muls<2>({S_Z1, S_Y2}, {S_Z1, S_Z1}, {S_MZZ, S_MT});
+        muls<2>({S_X2, S_MT}, {S_MZZ, S_MZZ}, {S_MU2, S_MS2});
+        // H = U2 - X1, r = 2 (S2 - Y1), 2H
+        lin(3, [&](int op, int c) {
+            if (op == 1) {
+                st(S_MR, c, cc_dbl(cc_sub(ld(S_MS2, c), ld(S_Y1, c), F), F));
+            } else {
+                const E h = cc_sub(ld(S_MU2, c), ld(S_X1, c), F);
+                st(op == 0 ? S_MH : S_MH2, c, op == 0 ? h : cc_dbl(h, F));
+            }
+        });
+        if (is_zero(S_MH)) {
+            if (is_zero(S_MR)) {
+                lin(3, [&](int op, int c) {  // Q lifted to (x2, y2, 1)
+                    st(S_X1 + op, c,
+                       op < 2 ? ld(S_X2 + op, c) : c == 0 ? fq_one(F) : fq_zero<NL>());
+                });
+                dbl();
+            } else {
+                set(S_X1, 3, 2);
+            }
+            return S_X1;
+        }
+        // I = (2H)^2, r^2, Z1 H; J = H I, V = X1 I
+        muls<3>({S_MH2, S_MR, S_Z1}, {S_MH2, S_MR, S_MH}, {S_MI, S_MRSQ, S_MZH});
+        muls<2>({S_MH, S_X1}, {S_MI, S_MI}, {S_MJ, S_MV});
+        // X3 = r^2 - J - 2V, W = V - X3, Z3 = 2 Z1 H (X1 and Z1 are read no more)
+        lin(2, [&](int op, int c) {
+            if (op == 0) {
+                const E v = ld(S_MV, c);
+                const E x3 = cc_sub(cc_sub(ld(S_MRSQ, c), ld(S_MJ, c), F), cc_dbl(v, F), F);
+                st(S_X1, c, x3);
+                st(S_MW, c, cc_sub(v, x3, F));
+            } else {
+                st(S_Z1, c, cc_dbl(ld(S_MZH, c), F));
+            }
+        });
+        // Y3 = r W - 2 Y1 J
+        muls<2>({S_MR, S_Y1}, {S_MW, S_MJ}, {S_MY3A, S_MSJ});
+        lin(1, [&](int, int c) {
+            st(S_Y1, c, cc_sub(ld(S_MY3A, c), cc_dbl(ld(S_MSJ, c), F), F));
+        });
+        return S_X1;
+    }
+
     // the coordinates x, y and, unless it is null, z of row i from the
     // 16-bit-limb boundary layout into ring slots k, k + 1 (, k + 2), two
     // 32-bit words per item
@@ -385,6 +447,29 @@ struct Group {
         load(x2, y2, nullptr, S_X2, i);
         store(aadd(inf1[i] != 0, inf2[i] != 0), ox, oy, oz, i);
     }
+
+    // row i: cond ? P + Q : P, Q affine and never at infinity.  cond false
+    // copies P and never reads Q; cond true reads Z1 with Q, and P at
+    // infinity (the only case of Pippenger's level-0 queries, whose
+    // accumulators start there) gives (x2, y2, 1) without reading X1, Y1.
+    ZK_HD void run_madd_if(const int32_t* x1, const int32_t* y1, const int32_t* z1,
+                           const int32_t* x2, const int32_t* y2, const uint8_t* cond,
+                           int32_t* ox, int32_t* oy, int32_t* oz, long i) {
+        static_assert(S_X2 == S_Z1 + 1 && S_Y2 == S_Z1 + 2, "Z1, x2, y2 load as one");
+        if (!cond[i]) {
+            load(x1, y1, z1, S_X1, i);
+            store(S_X1, ox, oy, oz, i);
+            return;
+        }
+        load(z1, x2, y2, S_Z1, i);
+        if (is_zero(S_Z1)) {
+            set(S_Z2, 1, 1);
+            store(S_X2, ox, oy, oz, i);
+            return;
+        }
+        load(x1, y1, nullptr, S_X1, i);
+        store(madd(), ox, oy, oz, i);
+    }
 };
 
 template <class R>
@@ -393,5 +478,7 @@ template <class R>
 using DoubleGroup = Group<R, point_lanes<R>(), N_DBL_SLOTS>;
 template <class R>
 using AaddGroup = Group<R, aadd_lanes<R>(), N_AADD_SLOTS>;
+template <class R>
+using MaddGroup = Group<R, point_lanes<R>(), N_MADD_SLOTS>;
 
 }  // namespace zk

@@ -2,13 +2,13 @@
 // the g++ host build used by the CPU tests (host_core.cpp).
 //
 // Replaces the in-kernel limb library of the JAX package
-// (zksaas_tpu/fields/kernel_lib.py::KernelField), the mixed add's point
-// core of zksaas_tpu/curves/fused.py (_madd_core; the other cores are the
-// grouped programs of add_group.cuh), its Fermat inverse (_finv_call; here
-// Bernstein-Yang's safegcd, FqInverse) and the digit passes of the key sort
-// (zksaas_tpu/fields/sortperm.py).  Fq comes twice: a CIOS product in
-// 64-bit C (fq_mul; montmul and the mixed add) and one on PTX carry chains
-// (cc_mul and cc_add/cc_sub; the grouped programs, ring_mul, ring_inv).
+// (zksaas_tpu/fields/kernel_lib.py::KernelField), the Fermat inverse of
+// zksaas_tpu/curves/fused.py (_finv_call; here Bernstein-Yang's safegcd,
+// FqInverse) and the digit passes of the key sort
+// (zksaas_tpu/fields/sortperm.py); the point cores of fused.py are the
+// grouped programs of add_group.cuh.  Fq comes twice: a CIOS product in
+// 64-bit C (fq_mul; montmul) and one on PTX carry chains (cc_mul and
+// cc_add/cc_sub; the grouped programs, ring_mul, ring_inv).
 //
 // An Fq element is NL little-endian 32-bit limbs in Montgomery form: NL = 8
 // for BN254's Fq and every scalar field (256-bit), NL = 12 for the BLS12
@@ -76,14 +76,6 @@ ZK_HD Fq<NL> fq_one(const FieldParams<NL>& F) {
     return r;
 }
 
-template <int NL>
-ZK_HD bool fq_is_zero(const Fq<NL>& a) {
-    uint32_t acc = 0;
-#pragma unroll
-    for (int i = 0; i < NL; i++) acc |= a.v[i];
-    return acc == 0;
-}
-
 // s (with carry bit `top` above limb NL-1) reduced once by p; s < 2p.
 template <int NL>
 ZK_HD Fq<NL> fq_reduce_once(const Fq<NL>& s, uint32_t top, const FieldParams<NL>& F) {
@@ -96,46 +88,6 @@ ZK_HD Fq<NL> fq_reduce_once(const Fq<NL>& s, uint32_t top, const FieldParams<NL>
         br = (uint32_t)(t >> 63);
     }
     return (top || !br) ? d : s;
-}
-
-template <int NL>
-ZK_HD Fq<NL> fq_add(const Fq<NL>& a, const Fq<NL>& b, const FieldParams<NL>& F) {
-    Fq<NL> s;
-    uint32_t c = 0;
-#pragma unroll
-    for (int i = 0; i < NL; i++) {
-        uint64_t t = (uint64_t)a.v[i] + b.v[i] + c;
-        s.v[i] = (uint32_t)t;
-        c = (uint32_t)(t >> 32);
-    }
-    return fq_reduce_once(s, c, F);
-}
-
-template <int NL>
-ZK_HD Fq<NL> fq_dbl(const Fq<NL>& a, const FieldParams<NL>& F) {
-    return fq_add(a, a, F);
-}
-
-template <int NL>
-ZK_HD Fq<NL> fq_sub(const Fq<NL>& a, const Fq<NL>& b, const FieldParams<NL>& F) {
-    Fq<NL> d;
-    uint32_t br = 0;
-#pragma unroll
-    for (int i = 0; i < NL; i++) {
-        uint64_t t = (uint64_t)a.v[i] - b.v[i] - br;
-        d.v[i] = (uint32_t)t;
-        br = (uint32_t)(t >> 63);
-    }
-    if (br) {  // a < b: add p back (the carry out cancels the borrow)
-        uint32_t c = 0;
-#pragma unroll
-        for (int i = 0; i < NL; i++) {
-            uint64_t t = (uint64_t)d.v[i] + F.p[i] + c;
-            d.v[i] = (uint32_t)t;
-            c = (uint32_t)(t >> 32);
-        }
-    }
-    return d;
 }
 
 // CIOS Montgomery product a*b*R^-1 mod p, R = 2^(32 NL).  Needs a*b < R p,
@@ -560,19 +512,12 @@ struct RingFq {
     typedef Fq<N> E;
     typedef FieldParams<N> P;
     static constexpr int LIMBS16 = 2 * N;  // 16-bit limbs per coordinate
-    static ZK_HD E add(const E& a, const E& b, const P& F) { return fq_add(a, b, F); }
-    static ZK_HD E sub(const E& a, const E& b, const P& F) { return fq_sub(a, b, F); }
-    static ZK_HD E dbl(const E& a, const P& F) { return fq_dbl(a, F); }
-    static ZK_HD E mul(const E& a, const E& b, const P& F) { return fq_mul(a, b, F); }
-    static ZK_HD E sqr(const E& a, const P& F) { return fq_mul(a, a, F); }
     // ring_mul's product, on carry chains and inlined
     static ZK_HD E mul_cc(const E& a, const E& b, const P& F) { return cc_mont(a, b, F); }
     // the inverse (ring_inv): the Fq element that FqInverse inverts, and
     // the ring's inverse from that element's
     static ZK_HD Fq<N> inv_norm(const E& a, const P&) { return a; }
     static ZK_HD E inv_finish(const E&, const Fq<N>& ninv, const P&) { return ninv; }
-    static ZK_HD bool is_zero(const E& a) { return fq_is_zero(a); }
-    static ZK_HD E one(const P& F) { return fq_one(F); }
     static ZK_HD E zero() { return fq_zero<N>(); }
 };
 
@@ -590,29 +535,6 @@ struct RingFq2 {
     typedef Fq2<N> E;
     typedef FieldParams<N> P;
     static constexpr int LIMBS16 = 4 * N;
-    static ZK_HD E add(const E& a, const E& b, const P& F) {
-        return E{fq_add(a.c0, b.c0, F), fq_add(a.c1, b.c1, F)};
-    }
-    static ZK_HD E sub(const E& a, const E& b, const P& F) {
-        return E{fq_sub(a.c0, b.c0, F), fq_sub(a.c1, b.c1, F)};
-    }
-    static ZK_HD E dbl(const E& a, const P& F) { return E{fq_dbl(a.c0, F), fq_dbl(a.c1, F)}; }
-    // -nr * x: x itself, or 4x + x by doublings (fused.py's muli)
-    static ZK_HD Fq<N> neg_nr(const Fq<N>& x, const P& F) {
-        if constexpr (NR == 1) {
-            return x;
-        } else {
-            return fq_add(fq_dbl(fq_dbl(x, F), F), x, F);
-        }
-    }
-    // Karatsuba: (t0 + nr t1, (a0 + a1)(b0 + b1) - t0 - t1)
-    static ZK_HD E mul(const E& a, const E& b, const P& F) {
-        Fq<N> t0 = fq_mul(a.c0, b.c0, F);
-        Fq<N> t1 = fq_mul(a.c1, b.c1, F);
-        Fq<N> t2 = fq_mul(fq_add(a.c0, a.c1, F), fq_add(b.c0, b.c1, F), F);
-        return E{fq_sub(t0, neg_nr(t1, F), F), fq_sub(fq_sub(t2, t0, F), t1, F)};
-    }
-    static ZK_HD E sqr(const E& a, const P& F) { return mul(a, a, F); }
     // ring_mul's Karatsuba product, on carry chains and inlined
     static ZK_HD E mul_cc(const E& a, const E& b, const P& F) {
         Fq<N> t0 = cc_mont(a.c0, b.c0, F);
@@ -627,88 +549,8 @@ struct RingFq2 {
     static ZK_HD E inv_finish(const E& a, const Fq<N>& ninv, const P& F) {
         return E{cc_mul(a.c0, ninv, F), cc_sub(fq_zero<N>(), cc_mul(a.c1, ninv, F), F)};
     }
-    static ZK_HD bool is_zero(const E& a) { return fq_is_zero(a.c0) && fq_is_zero(a.c1); }
-    static ZK_HD E one(const P& F) { return E{fq_one(F), fq_zero<N>()}; }
     static ZK_HD E zero() { return E{fq_zero<N>(), fq_zero<N>()}; }
 };
-
-// ---------------------------------------------------------------------------
-// a = 0 Jacobian point formulas of the mixed add (zksaas_tpu/curves/
-// fused.py::_madd_core, with ::_double_core for its P == Q case; the complete
-// add, the k-fold double and the affine+affine add are the grouped programs
-// of add_group.cuh); the special cases are branches here instead of selects
-// ---------------------------------------------------------------------------
-
-template <class R>
-ZK_HD void pt_double(typename R::E& X, typename R::E& Y, typename R::E& Z,
-                     const typename R::P& F) {
-    typedef typename R::E E;
-    E A = R::sqr(X, F);
-    E B = R::sqr(Y, F);
-    E C = R::sqr(B, F);
-    E D = R::dbl(R::sub(R::sub(R::sqr(R::add(X, B, F), F), A, F), C, F), F);
-    E E3 = R::add(R::dbl(A, F), A, F);
-    E F2 = R::sqr(E3, F);
-    E X3 = R::sub(F2, R::dbl(D, F), F);
-    E C8 = R::dbl(R::dbl(R::dbl(C, F), F), F);
-    E Y3 = R::sub(R::mul(E3, R::sub(D, X3, F), F), C8, F);
-    E Z3 = R::dbl(R::mul(Y, Z, F), F);
-    X = X3;
-    Y = Y3;
-    Z = Z3;
-}
-
-// The mixed add's chord, from H = U2 - U1 and rr = 2 (S2 - S1):
-// I = (2H)^2, J = H I, V = U1 I, X3 = rr^2 - J - 2V, Y3 = rr (V - X3) - 2 S1 J.
-template <class R>
-ZK_HD void pt_chord(const typename R::E& H, const typename R::E& rr, const typename R::E& U1,
-                    const typename R::E& S1, typename R::E& X3, typename R::E& Y3,
-                    const typename R::P& F) {
-    typedef typename R::E E;
-    E I = R::sqr(R::dbl(H, F), F);
-    E J = R::mul(H, I, F);
-    E V = R::mul(U1, I, F);
-    X3 = R::sub(R::sub(R::sqr(rr, F), J, F), R::dbl(V, F), F);
-    Y3 = R::sub(R::mul(rr, R::sub(V, X3, F), F), R::dbl(R::mul(S1, J, F), F), F);
-}
-
-// (X1, Y1, Z1) += affine (x2, y2), complete, Q never at infinity
-// (zksaas_tpu/curves/fused.py::_madd_core): P at infinity gives (x2, y2, 1),
-// P == Q doubles (x2, y2, 1), P == -Q gives (one, one, zero).
-template <class R>
-ZK_HD void pt_madd(typename R::E& X1, typename R::E& Y1, typename R::E& Z1,
-                   const typename R::E& x2, const typename R::E& y2, const typename R::P& F) {
-    typedef typename R::E E;
-    if (R::is_zero(Z1)) {
-        X1 = x2;
-        Y1 = y2;
-        Z1 = R::one(F);
-        return;
-    }
-    E Z1Z1 = R::sqr(Z1, F);
-    E U2 = R::mul(x2, Z1Z1, F);
-    E S2 = R::mul(R::mul(y2, Z1, F), Z1Z1, F);
-    E H = R::sub(U2, X1, F);
-    E rr = R::dbl(R::sub(S2, Y1, F), F);
-    if (R::is_zero(H)) {
-        if (R::is_zero(rr)) {
-            X1 = x2;
-            Y1 = y2;
-            Z1 = R::one(F);
-            pt_double<R>(X1, Y1, Z1, F);
-        } else {
-            X1 = R::one(F);
-            Y1 = R::one(F);
-            Z1 = R::zero();
-        }
-        return;
-    }
-    E X3, Y3;
-    pt_chord<R>(H, rr, X1, Y1, X3, Y3, F);
-    Z1 = R::mul(R::dbl(Z1, F), H, F);
-    X1 = X3;
-    Y1 = Y3;
-}
 
 // ---------------------------------------------------------------------------
 // LSD radix sort of each row of n keys ascending as unsigned 32-bit values

@@ -62,28 +62,6 @@ static void ring_inv_warp(const int32_t* a, int32_t* out, long n, const uint32_t
         store16(out + i * R::LIMBS16, R::inv_finish(x[i], lanes[i].result(F, I), F));
 }
 
-template <class R>
-static void madd_loop(const int32_t* x1, const int32_t* y1, const int32_t* z1,
-                      const int32_t* x2, const int32_t* y2, const uint8_t* cond, int32_t* ox,
-                      int32_t* oy, int32_t* oz, long n, const uint32_t* params) {
-    typename R::P F = params_from<R::NL>(params);
-    for (long i = 0; i < n; i++) {
-        const long off = i * R::LIMBS16;
-        typename R::E X, Y, Z, X2, Y2;
-        load16(x1 + off, X);
-        load16(y1 + off, Y);
-        load16(z1 + off, Z);
-        if (cond[i]) {
-            load16(x2 + off, X2);
-            load16(y2 + off, Y2);
-            pt_madd<R>(X, Y, Z, X2, Y2, F);
-        }
-        store16(ox + off, X);
-        store16(oy + off, Y);
-        store16(oz + off, Z);
-    }
-}
-
 template <int NL>
 static int montmul_loop(const int32_t* a, const int32_t* b, int32_t* out, long n,
                         const uint32_t* params) {
@@ -172,8 +150,9 @@ int zkc_point_madd_if(int nl, int nr, int ncoord, const int32_t* x1, const int32
                       const uint8_t* cond, int32_t* ox, int32_t* oy, int32_t* oz, long n,
                       const uint32_t* params) {
     return with_ring(nl, nr, ncoord, [&](auto r) {
-        madd_loop<decltype(r)>(x1, y1, z1, x2, y2, cond, ox, oy, oz, n, params);
-        return 0;
+        return group_loop<MaddGroup<decltype(r)>>(n, params, [&](auto& g, long i) {
+            g.run_madd_if(x1, y1, z1, x2, y2, cond, ox, oy, oz, i);
+        });
     });
 }
 

@@ -78,8 +78,16 @@
 //   are decided once per group.
 //
 // Kernel 8, point_madd_if: replaces fused.py::_madd_select_call
-//   (pmadd_if), the level-0 suffix queries.  Bound and design as the
-//   add-if: a lane whose cond is false reads and writes P only.
+//   (pmadd_if), the level-0 suffix queries.  Bound: 11 products a lane
+//   (x3 in G2) against 6 coordinates moved in the general case; on the
+//   main path every accumulator is at infinity, and then the bytes alone
+//   (Z1, x2, y2 in, 3 coordinates out).  Design: the grouped mixed add of
+//   add_group.cuh, 5 product levels of 2-3 ring products, 4 lanes a point
+//   in G1 and 8 in G2, no spill (the one-thread kernel it replaces took
+//   128-255 registers and spilled up to 776 B in G2); rows go to groups
+//   in order, as in the add; a group whose cond is false copies P and
+//   never reads Q, and one whose P is at infinity reads Z1 with Q and
+//   writes (x2, y2, 1).
 //
 // Kernel 9, sort_u32: replaces zksaas_tpu/fields/sortperm.py::_stage_call
 //   (one bitonic k-stage, launched in sequence by _sort_call), the

@@ -13,8 +13,6 @@
 
 namespace zk {
 
-constexpr int THREADS = 128;
-
 inline unsigned blocks(long n, int threads) { return (unsigned)((n + threads - 1) / threads); }
 
 // One coordinate row of 2 NL 16-bit limbs (4 NL bytes, a multiple of 16)
@@ -56,7 +54,7 @@ __device__ __forceinline__ void vstore(int32_t* dst, const Fq2<NL>& a) {
     vstore(dst + 2 * NL, a.c1);
 }
 
-// Kernels 2-4 and 7, the grouped point programs of add_group.cuh: one group
+// Kernels 2-4, 7 and 8, the grouped point programs of add_group.cuh: one group
 // of Grp::G lanes per point (row); each group's slots are its part of the
 // block's dynamic shared memory.
 constexpr int GROUP_THREADS = 128;
@@ -111,6 +109,20 @@ aadd_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
     AaddGroup<R> g = block_group<AaddGroup<R>>(F, i);
     if (i >= n) return;
     g.run_aadd(x1, y1, x2, y2, inf1, inf2, ox, oy, oz, i);
+}
+
+// Kernel 8: cond ? P + Q_affine : P.
+template <class R>
+__global__ void __launch_bounds__(GROUP_THREADS)
+madd_if_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
+               const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
+               const int32_t* __restrict__ y2, const uint8_t* __restrict__ cond,
+               int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz,
+               long n, typename R::P F) {
+    long i;
+    MaddGroup<R> g = block_group<MaddGroup<R>>(F, i);
+    if (i >= n) return;
+    g.run_madd_if(x1, y1, z1, x2, y2, cond, ox, oy, oz, i);
 }
 
 // Kernel 5: ring_mul, on carry chains, by the width and the ring
@@ -277,31 +289,6 @@ ring_inv_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out, long n
     if (i < n) vstore(out + off, R::inv_finish(x, s.result(F, I), F));
 }
 
-template <class R>
-__global__ void __launch_bounds__(THREADS)
-madd_if_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
-               const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
-               const int32_t* __restrict__ y2, const uint8_t* __restrict__ cond,
-               int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz,
-               long n, typename R::P F) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const long off = i * R::LIMBS16;
-    typename R::E X, Y, Z;
-    vload(x1 + off, X);
-    vload(y1 + off, Y);
-    vload(z1 + off, Z);
-    if (cond[i]) {
-        typename R::E X2, Y2;
-        vload(x2 + off, X2);
-        vload(y2 + off, Y2);
-        pt_madd<R>(X, Y, Z, X2, Y2, F);
-    }
-    vstore(ox + off, X);
-    vstore(oy + off, Y);
-    vstore(oz + off, Z);
-}
-
 // ---------------------------------------------------------------------------
 // launchers: on the caller's stream, allocating nothing, returning
 // cudaGetLastError()
@@ -377,9 +364,8 @@ template <class R>
 int launch_madd_if(const int32_t* x1, const int32_t* y1, const int32_t* z1, const int32_t* x2,
                    const int32_t* y2, const uint8_t* cond, int32_t* ox, int32_t* oy,
                    int32_t* oz, long n, const uint32_t* params, cudaStream_t s) {
-    madd_if_kernel<R><<<blocks(n, THREADS), THREADS, 0, s>>>(x1, y1, z1, x2, y2, cond, ox, oy,
-                                                             oz, n, params_from<R::NL>(params));
-    return (int)cudaGetLastError();
+    return launch_groups<MaddGroup<R>>(&madd_if_kernel<R>, n, s, x1, y1, z1, x2, y2, cond, ox,
+                                       oy, oz, n, params_from<R::NL>(params));
 }
 
 // The launchers of one coordinate ring.  add_if with cond == nullptr is the

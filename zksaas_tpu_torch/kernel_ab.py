@@ -1,5 +1,5 @@
-"""The point add, add-if, double, affine+affine add, ring product, ring
-inverse and key sort of two checkouts, timed on one card.
+"""The point add, add-if, double, affine+affine add, mixed add-if, ring
+product, ring inverse and key sort of two checkouts, timed on one card.
 
   python -m zksaas_tpu_torch.kernel_ab --ref DIR [--out FILE] [--groups G,...]
 
@@ -21,6 +21,10 @@ coordinate ring (G1 and G2 of BN254, BLS12-381, BLS12-377):
 * point_aadd at 2^21 pairs (Pippenger's tree level 1 in the path's
   2^14-chunk MSMs) and 2^22 (the 2^15-chunk h-query MSM), with P == Q,
   P == -Q and infinity flags mixed in, with CUDA events;
+* point_madd_if at 65,280 lanes (Pippenger's level-0 queries over 8
+  parties x 32 windows x 255 buckets) on chip_smoke.madd_inputs' random
+  accumulators and on the main path's, every accumulator at infinity, as
+  CUDA-graph device time (both checkouts time this checkout's inputs);
 * ring_mul at 2^18 and 2^17 elements (the affine conversion, the inversion
   tree's widest level), 8,192 and 1,024 (its levels near the root) and
   ring_inv at 1,024 (the root), as CUDA-graph device time: one launch from
@@ -29,7 +33,7 @@ coordinate ring (G1 and G2 of BN254, BLS12-381, BLS12-377):
 and the key sort over 8 rows of 2^19 and of 2^20 keys beside torch.sort on
 the same keys, with the sort's device time per kernel name from
 torch.profiler.  --groups picks some of the groups points (the add,
-add-if, double and aadd), ring and sort (all by default).  The inputs are chip_smoke.test_points /
+add-if, double and aadd), madd, ring and sort (all by default).  The inputs are chip_smoke.test_points /
 affine_pairs, random ring elements and random keys from fixed seeds, the
 same in every run.  The empty kernel's graph time (this checkout only) is
 the launch floor.  Prints the card's name and power limit and one JSON
@@ -112,7 +116,20 @@ def _device_ms_by_kernel(fn, calls: int) -> dict:
     return out
 
 
-GROUPS = ("points", "ring", "sort")
+GROUPS = ("points", "madd", "ring", "sort")
+MADD_LANES = 8 * 32 * 255
+
+
+def _this_chip_smoke():
+    """This checkout's chip_smoke.py as a module of its own name, so that a
+    worker of the other checkout times the same madd inputs."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_this",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _worker(root: str, groups=GROUPS) -> dict:
@@ -142,6 +159,13 @@ def _worker(root: str, groups=GROUPS) -> dict:
                 x = a[:1024].contiguous()
                 res[f"{C.name} ring_inv n=1024"] = graph_ms(lambda: po.ring_inv(spec, nc, x), 50)
                 del a, b, x
+            if "madd" in groups:
+                inputs = _this_chip_smoke().madd_inputs
+                for at_inf, tag in ((False, "random P"), (True, "every P at infinity")):
+                    A, N, cond = inputs(C, MADD_LANES, at_inf)[:3]
+                    res[f"{C.name} madd_if n={MADD_LANES} {tag}"] = graph_ms(
+                        lambda: po.point_madd_if(spec, nc, A, N, cond), 50)
+                del A, N, cond
             gen = torch.Generator().manual_seed(2026)
             if "points" not in groups:
                 continue

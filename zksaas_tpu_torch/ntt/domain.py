@@ -52,6 +52,7 @@ class Radix2Domain:
         self.size_inv = pow(n, -1, p)
         self.offset = offset % p
         self.offset_inv = pow(self.offset, -1, p)
+        self.offset_pow_size = pow(self.offset, n, p)
         self._brev = torch.from_numpy(bitrev_perm(n))
 
     @functools.cache
@@ -83,6 +84,10 @@ class Radix2Domain:
         for _ in range(self.n - 1):
             out.append((out[-1] * self.group_gen) % p)
         return out
+
+    def evaluate_vanishing_polynomial(self, tau: int) -> int:
+        """Z(tau) = tau^n - offset^n (host int; as arkworks evaluates it)."""
+        return (pow(tau, self.n, self.spec.p) - self.offset_pow_size) % self.spec.p
 
     # ------------------------------------------------------------------
 

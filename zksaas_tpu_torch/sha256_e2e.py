@@ -12,8 +12,9 @@ then the curve's pairing check on the host (pure Python, its own phase).
 Usage: python -m zksaas_tpu_torch.sha256_e2e [a] [b] [--curve bn254|bls12_381|bls12_377]
 The curve (BN254 by default) sets the circuit's scalar field and the
 groups.  Runs on the CUDA device (there is no CPU fallback) and prints one
-JSON line with the curve, the timed prove's latency, the phase times and
-each kernel's launches during that prove, in all and per field.
+JSON line with the curve, the timed prove's latency, the phase times,
+each kernel's launches during that prove, in all and per field, and the
+unpacked proof (affine a, b, c as integers).
 """
 
 from __future__ import annotations
@@ -112,6 +113,7 @@ def main(a_in: int = 1, b_in: int = 2, device="cuda", curve: str = "bn254") -> d
             "rounds": net.rounds - rounds_before,
             "total_wall_s": time.perf_counter() - t_all,
             "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+            "proof": {"a": a, "b": b, "c": c},
         },
     }
 
