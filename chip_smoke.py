@@ -41,7 +41,21 @@
    products (dist/dpp.py::d_pp with PpBlind) over 2^16 num/den pairs and
    holds the unpacked result against the host's running product; each
    with every launch count set to 0 just before and read just after;
-7. prints the kernels line and, last, the device line.
+7. proves the BN254 flagship again with the same CRS, dealer shares, r and
+   s over the TCP star on 127.0.0.1: this process is the king (party 0)
+   and spawns the 7 client parties, one process each on the same card
+   (zksaas_tpu_torch/host_prove.py; plain TCP, as the card's machine has
+   no `cryptography` for mTLS), one warm-up prove and one timed; the
+   unpacked proof must equal the LocalNet flagship's, pass the pairing
+   check, every client must exit 0, and the king's timed d_prove must
+   launch every kernel; it logs the rounds, the bytes each round moved and
+   the king's split of its round time;
+8. proves the BN254 flagship over JournalNet(LocalNet(8)) (comm/journal.py):
+   (a) recording every round, (b) replaying all of them over a net whose
+   round raises, (c) with the last record deleted, resuming over a LocalNet
+   that must run exactly one live round; each gives the flagship's proof;
+   it logs the records' bytes and each step's seconds;
+9. prints the kernels line and, last, the device line.
 
 Exits non-zero, before printing any result, when no CUDA device is present
 or any phase fails.  Imports nothing of JAX.
@@ -619,6 +633,99 @@ def run_d_pp():
                 equal=equal, rounds=net.rounds, d_pp_s=dev_s, host_product_s=host_s), equal, counts
 
 
+def unpack_proof(pp, g1, g2, pi):
+    """Proof shares with a leading party axis -> the affine (a, b, c)."""
+    a = g1.decode(tuple(c[:1] for c in pp.unpack2_g(g1, pi[0])))[0]
+    b = g2.decode(tuple(c[:1] for c in pp.unpack2_g(g2, pi[1])))[0]
+    c = g1.decode(tuple(c[:1] for c in pp.unpack2_g(g1, pi[2])))[0]
+    return a, b, c
+
+
+def run_host_star(dealt, want):
+    """The BN254 flagship's keys, shares, r and s over the TCP star: this
+    process the king, 7 spawned client processes on the same card.  Returns
+    its row, whether the proof equals `want` (the LocalNet flagship's
+    affine a, b, c) and passes the pairing check, and the launch counts of
+    the king process over the whole call."""
+    from zksaas_tpu_torch import host_prove
+    from zksaas_tpu_torch.groth16.local import Proof, verify
+    from zksaas_tpu_torch.utils.rng import generator
+
+    args, r1cs = dealt["args"], dealt["r1cs"]
+    res, secs, counts = counted(lambda: host_prove.prove_king(
+        *args, generator(10), timeout=900.0, warmup=True))
+    proof = unpack_proof(*args[:3], res["shares"])
+    verified = verify(dealt["vk"], dealt["z"][1 : r1cs.num_instance], Proof(*proof))
+    equal = proof == want
+    rounds = [dict(r, kind=k) for r, k in zip(res["rounds"], host_prove.ROUND_KINDS)]
+    row = dict(case=f"sha256 bn254 m=2^16, {args[0].n} processes over TCP 127.0.0.1",
+               equal=equal, verified=verified, exitcodes=res["exitcodes"], stats=res["stats"],
+               rounds=rounds, king_split_s=res["king_split"], times_s=res["times"],
+               prove_phases_s=res["prove_phases"], prove_launches=res["launches"], call_s=secs)
+    idle = [k for k, n in res["launches"].items() if n == 0]
+    ok = equal and verified and not idle and all(c == 0 for c in res["exitcodes"])
+    return row, ok, counts
+
+
+class _NoNet:
+    """A net whose round raises: a replay that reaches it failed."""
+
+    def __init__(self, n):
+        self.n_parties = n
+
+    def round(self, x, king_fn, channel=0):
+        raise RuntimeError("the journal's replay reached the network")
+
+
+def run_journal(dealt, want):
+    """The BN254 flagship over JournalNet(LocalNet(8)) in a temporary
+    directory: (a) record, (b) replay every round over _NoNet, (c) resume
+    after deleting the last record over a LocalNet that runs one round.
+    Returns as run_host_star does, the counts of the three proves."""
+    import shutil
+    import tempfile
+
+    from zksaas_tpu_torch import kernels
+    from zksaas_tpu_torch.comm import JournalNet, LocalNet
+    from zksaas_tpu_torch.groth16.prove import d_prove
+    from zksaas_tpu_torch.utils.rng import generator
+
+    args = dealt["args"]
+    pp = args[0]
+    d = tempfile.mkdtemp(prefix="zksaas_journal_")
+    steps, checks = {}, []
+    try:
+        kernels.reset_launches()
+        for step, inner in (("record", LocalNet(pp.n)), ("replay", _NoNet(pp.n)),
+                            ("resume", LocalNet(pp.n))):
+            if step == "resume":
+                os.unlink(os.path.join(d, f"round_{total - 1:04d}.ckpt"))
+            net = JournalNet(inner, d)
+            t0 = time.perf_counter()
+            pi = d_prove(*args, net, generator(10))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if step == "record":
+                total = net.rounds
+                files = sorted(os.listdir(d))
+                steps["record_bytes"] = sum(os.path.getsize(os.path.join(d, f)) for f in files)
+                steps["records"] = len(files)
+            steps[f"{step}_s"] = secs
+            steps[f"{step}_replayed"] = net.replayed
+            same = unpack_proof(*args[:3], pi) == want
+            checks.append((step, same))
+        checks.append(("replayed == rounds", steps["replay_replayed"] == total))
+        checks.append(("resume replayed rounds - 1", steps["resume_replayed"] == total - 1))
+        checks.append(("resume ran 1 live round", inner.rounds == 1))
+        counts = dict(launches={k.name: k.launches for k in kernels.KERNELS},
+                      by_field={k.name: dict(k.by_field) for k in kernels.KERNELS})
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    row = dict(case=f"sha256 bn254 m=2^16, JournalNet(LocalNet({pp.n}))", rounds=total,
+               checks=dict((k, bool(v)) for k, v in checks), **steps)
+    return row, all(v for _, v in checks), counts
+
+
 def serial_roundtrip(proof):
     """The flagship's BN254 proof (sha256_e2e's detail.proof: affine points
     as tuples of ints) to arkworks bytes and back: the hex and whether it
@@ -705,9 +812,10 @@ def main():
     # the main path over BN254, then its BLS12-381 configuration; the
     # counts are set to 0 just before each and read just after
     paths = {}
+    dealt = {}  # the BN254 flagship's dealer state, for the host_star and journal paths
     for fam in ("bn254", "bls12_381"):
         kernels.reset_launches()
-        res = sha256_e2e.main(device="cuda", curve=fam)
+        res = sha256_e2e.main(device="cuda", curve=fam, dealt=dealt if fam == "bn254" else None)
         paths[fam] = dict(res=res, launches={k.name: k.launches for k in kernels.KERNELS},
                           by_field={k.name: dict(k.by_field) for k in kernels.KERNELS})
         log(f"flagship {json.dumps(res)}")
@@ -750,6 +858,20 @@ def main():
             raise SystemExit(f"{name} disagrees with the host: {row}")
         if not launches["montmul"]:
             raise SystemExit(f"{name} never launched montmul")
+        torch.cuda.empty_cache()
+
+    # the deployment's transport and the round journal, on the BN254
+    # flagship's dealer state; each must give the LocalNet flagship's proof
+    p = paths["bn254"]["res"]["detail"]["proof"]
+    want = (p["a"], p["b"], p["c"])
+    for name, run in (("host_star", run_host_star), ("journal", run_journal)):
+        row, ok, phases[name] = run(dealt, want)
+        log(f"{name} {json.dumps(dict(row, launches=phases[name]['launches']))}")
+        if not ok:
+            raise SystemExit(f"the {name} path failed: {row}")
+        idle = [k for k, n in phases[name]["launches"].items() if n == 0]
+        if idle:
+            raise SystemExit(f"kernels never launched on the {name} path: {idle}")
         torch.cuda.empty_cache()
 
     out = []

@@ -1,32 +1,48 @@
 """The port stands alone and runs on the card by default.
 
-A fresh interpreter imports every module of zksaas_tpu_torch (d_pp, Gao and
-serial among them) and must end up with neither jax nor zksaas_tpu loaded.
-The entry points (the flagship over BN254 and BLS12-381, msm_best over
-BN254 and BLS12-381, the dealer's libsnark masks and d_pp blinds, ...)
-must refuse to run without a CUDA device unless the caller asks for
-device="cpu", and
+A fresh interpreter imports every module of zksaas_tpu_torch (d_pp, Gao,
+serial, the TCP star, HostStarNet, the journal and host_prove among them)
+and must end up with neither jax, zksaas_tpu nor cryptography loaded (the
+star imports cryptography only to make a certificate), and no module of
+the port may import pickle.  The entry points (the flagship over BN254 and
+BLS12-381, the king of the multi-process prove, msm_best over BN254 and
+BLS12-381, the dealer's libsnark masks and d_pp blinds, ...) must refuse to
+run without a CUDA device unless the caller asks for device="cpu", and
 chip_smoke.py must fail, printing no result, both without a card and in a
-directory that holds nothing else of the repo.
+directory that holds nothing else of the repo.  The subprocesses run torch
+with one thread: on an 8-core CPU busy with 8 other processes, a one-point
+msm_best took 15.5 s with eight threads and 0.9 s with one.  The calls with
+device="cpu" run in the test's own process while the subprocess starts, so
+a case takes the longer of the two, not their sum.
 """
 
+import ast
 import os
 import shutil
 import subprocess
 import sys
 
 import pytest
+import torch
 
 from test_torch_heap import release_heap  # noqa: F401  (autouse)
+
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _run(code, cwd=ROOT):
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=ROOT)
+def _start(code, cwd=ROOT):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
-    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
-                          capture_output=True, text=True, timeout=300)
+    return subprocess.Popen([sys.executable, "-c", code], cwd=cwd, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _run(code, cwd=ROOT):
+    proc = _start(code, cwd)
+    out, err = proc.communicate(timeout=300)
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
 
 
 def test_port_imports_no_jax():
@@ -37,21 +53,38 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for n in names:
     importlib.import_module(n)
 assert len(names) > 30, names
-new = {"zksaas_tpu_torch.dist.dpp", "zksaas_tpu_torch.pss.gao", "zksaas_tpu_torch.utils.serial"}
+new = {"zksaas_tpu_torch.dist.dpp", "zksaas_tpu_torch.pss.gao", "zksaas_tpu_torch.utils.serial",
+       "zksaas_tpu_torch.comm.star", "zksaas_tpu_torch.comm.host_net",
+       "zksaas_tpu_torch.comm.journal", "zksaas_tpu_torch.host_prove"}
 assert new <= set(names), sorted(new - set(names))
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "zksaas_tpu.")) or m == "zksaas_tpu")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "zksaas_tpu", "cryptography"))
 assert not bad, bad
 print("ok", len(names))
 """
     res = _run(code)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+    # no module of the port imports a pickle format (torch imports pickle
+    # itself, so this reads the sources)
+    pickles = {"pickle", "_pickle", "cPickle", "cloudpickle", "dill", "shelve"}
+    found = []
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "zksaas_tpu_torch")):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(dirpath, f)
+                with open(path) as fh:
+                    tree = ast.parse(fh.read(), path)
+                for node in ast.walk(tree):
+                    mods = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                            else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+                    found += [(path, m) for m in mods if m.split(".")[0] in pickles]
+    assert not found, found
 
 
 _SETUP = """
-from zksaas_tpu_torch import sha256_e2e
+from zksaas_tpu_torch import host_prove, sha256_e2e
 from zksaas_tpu_torch.circom.r1cs import ConstraintBuilder
-from zksaas_tpu_torch.curves.curve import curve_g1
+from zksaas_tpu_torch.curves.curve import curve_g1, curve_g2
 from zksaas_tpu_torch.curves.pippenger import msm_best
 from zksaas_tpu_torch.dist import PpBlind
 from zksaas_tpu_torch.groth16 import libsnark_masks
@@ -71,6 +104,7 @@ pp = pss(BN254_FR, 2)
 
 ENTRY_POINTS = {
     "sha256_e2e": "sha256_e2e.main({})",
+    "host_prove": "host_prove.prove_king(pp, curve_g1(), curve_g2(), *[None] * 7, generator(1){})",
     "sha256_e2e_bls12_381": "sha256_e2e.main(curve='bls12_381'{})",
     "field_encode": "field(BN254_FR).encode([1, 2]{})",
     "qap_pack": "qap_pack(pp, r1cs, z, generator(1){})",
@@ -84,10 +118,15 @@ ENTRY_POINTS = {
 
 # more of the dealer's entry points, checked beside qap_pack
 DEALER = ("PpBlind.sample(pp, 4, generator(1){})", "libsnark_masks(pp, 8, generator(1){})")
+# whole proves, too big for this test on the CPU: the flagship, and the king
+# of the multi-process prove, which tests/test_torch_host_net.py runs there
+FULL_PROVES = ("sha256_e2e", "sha256_e2e_bls12_381", "host_prove")
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_entry_points_need_a_gpu_unless_cpu_is_asked(name):
+    """Each call refuses in a fresh interpreter that sees no CUDA device;
+    meanwhile, the same calls with device="cpu" run here."""
     calls = (ENTRY_POINTS[name],) + (DEALER if name == "qap_pack" else ())
     code = _SETUP
     for call in calls:
@@ -99,11 +138,19 @@ except RuntimeError as e:
 else:
     raise SystemExit("ran without a GPU")
 """
-        if not name.startswith("sha256_e2e"):  # the full flagship is too big for a CPU test
-            code += call.format(", device='cpu'") + "\n"
-    res = _run(code + "print('ok')\n")
-    assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "ok"
+    proc = _start(code + "print('ok')\n")
+    try:
+        if name not in FULL_PROVES:
+            scope = {}
+            exec(_SETUP, scope)
+            for call in calls:
+                exec(call.format(", device='cpu'"), scope)
+        out, err = proc.communicate(timeout=300)
+    finally:
+        proc.kill()
+        proc.wait()
+    assert proc.returncode == 0, err
+    assert out.strip() == "ok"
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -12,11 +12,13 @@ run.  Nothing here imports jax or zksaas_tpu.
   curves/   G1/G2 Jacobian point ops (kernels 2-4), fixed-base, host oracle
   ntt/      radix-2 domains and the host NTT oracle
   pss/      packed secret sharing
-  comm/     the LocalNet star-protocol simulator
-  dist/     d_fft/d_ifft, deg_red, d_msm
+  comm/     the star protocol: LocalNet (all parties in one process), the
+            TCP star and HostStarNet (a process a party), JournalNet
+  dist/     d_fft/d_ifft, deg_red, d_msm, d_pp
   groth16/  QAP packing, extended witness, CRS packing, d_prove, host oracle
   circom/   R1CS and the SHA-256 fixture circuit
   sha256_e2e.py  the flagship distributed prove (python -m ...)
+  host_prove.py  a prove as a king and n - 1 spawned client processes
 """
 
 __version__ = "0.1.0"

@@ -14,6 +14,10 @@ holds both can hand the same CRS, shares and masks to both.
                    *_from / *_to_numpy (a dict of the dataclass's fields);
                    fft_masks_from for a list (libsnark_h's 7 masks)
 
+The *_from functions read either a dataclass's attributes or the dicts the
+*_to_numpy functions give, so one party's state (the `party(i)` of each
+container) can cross a process boundary as numpy and come back.
+
 The *_from functions take the circuit's scalar field spec (BN254, BLS12-381
 or BLS12-377 Fr) and check every array's limb count against it: K limbs for
 scalars, the curve's base field (16 or 24 limbs) for point coordinates.
@@ -36,7 +40,7 @@ from .dist.dpp import PpBlind
 from .fields.spec import FIELDS
 from .groth16.local import curve_family
 from .groth16.prove import ProveMasks
-from .groth16.proving_key import PackedProvingKeyShare
+from .groth16.proving_key import SHARED, PackedProvingKeyShare
 from .groth16.qap import PackedQAPShare
 from .ntt.domain import domain
 
@@ -66,7 +70,10 @@ def points_to_numpy(P) -> tuple:
     return tuple(to_numpy(c) for c in P)
 
 
-_CRS_POINTS = ("s", "u", "w", "h", "v")
+def _get(src, k):
+    return src[k] if isinstance(src, dict) else getattr(src, k)
+
+
 _CRS_CLEAR = ("a_query0", "b_g1_query0", "b_g2_query0", "delta_g1", "delta_g2",
               "alpha_g1", "beta_g1", "beta_g2")
 
@@ -77,38 +84,41 @@ def _fq_limbs(spec) -> int:
 
 
 def crs_from(src, spec, device="cuda") -> PackedProvingKeyShare:
-    kw = {k: points_to_torch(getattr(src, k), device, _fq_limbs(spec)) for k in _CRS_POINTS}
-    kw.update({k: getattr(src, k) for k in _CRS_CLEAR})
+    kw = {k: points_to_torch(_get(src, k), device, _fq_limbs(spec)) for k in SHARED}
+    kw.update({k: _get(src, k) for k in _CRS_CLEAR})
     return PackedProvingKeyShare(**kw)
 
 
 def crs_to_numpy(crs: PackedProvingKeyShare) -> dict:
-    out = {k: points_to_numpy(getattr(crs, k)) for k in _CRS_POINTS}
+    out = {k: points_to_numpy(getattr(crs, k)) for k in SHARED}
     out.update({k: getattr(crs, k) for k in _CRS_CLEAR})
     return out
 
 
 def qap_from(src, spec, device="cuda") -> PackedQAPShare:
-    """src: a, b, c (n, m/l, K) arrays, num_inputs, num_constraints and a
-    domain whose size is src.dom.n."""
+    """src: a, b, c (n, m/l, K) arrays (or one party's (m/l, K)),
+    num_inputs, num_constraints and the domain size: src.dom.n, or m in a
+    dict of qap_to_numpy."""
+    k = spec.nlimbs
     return PackedQAPShare(
-        num_inputs=src.num_inputs,
-        num_constraints=src.num_constraints,
-        a=to_torch(src.a, device, spec.nlimbs),
-        b=to_torch(src.b, device, spec.nlimbs),
-        c=to_torch(src.c, device, spec.nlimbs),
-        dom=domain(spec, src.dom.n),
+        num_inputs=_get(src, "num_inputs"),
+        num_constraints=_get(src, "num_constraints"),
+        a=to_torch(_get(src, "a"), device, k),
+        b=to_torch(_get(src, "b"), device, k),
+        c=to_torch(_get(src, "c"), device, k),
+        dom=domain(spec, src["m"] if isinstance(src, dict) else src.dom.n),
     )
 
 
 def qap_to_numpy(q: PackedQAPShare) -> dict:
     return dict(num_inputs=q.num_inputs, num_constraints=q.num_constraints,
-                a=to_numpy(q.a), b=to_numpy(q.b), c=to_numpy(q.c))
+                a=to_numpy(q.a), b=to_numpy(q.b), c=to_numpy(q.c), m=q.dom.n)
 
 
 def fft_mask_from(src, spec, device="cuda") -> FftMask:
     k = spec.nlimbs
-    return FftMask(to_torch(src.in_mask, device, k), to_torch(src.out_mask, device, k))
+    return FftMask(to_torch(_get(src, "in_mask"), device, k),
+                   to_torch(_get(src, "out_mask"), device, k))
 
 
 def fft_masks_from(srcs, spec, device="cuda") -> list:
@@ -118,26 +128,27 @@ def fft_masks_from(srcs, spec, device="cuda") -> list:
 
 def degred_mask_from(src, spec, device="cuda") -> DegRedMask:
     k = spec.nlimbs
-    return DegRedMask(to_torch(src.in_mask, device, k), to_torch(src.out_mask, device, k))
+    return DegRedMask(to_torch(_get(src, "in_mask"), device, k),
+                      to_torch(_get(src, "out_mask"), device, k))
 
 
 def pp_blind_from(src, spec, device="cuda") -> PpBlind:
     k = spec.nlimbs
-    return PpBlind(to_torch(src.num, device, k), to_torch(src.den, device, k))
+    return PpBlind(to_torch(_get(src, "num"), device, k), to_torch(_get(src, "den"), device, k))
 
 
 def msm_mask_from(src, spec, device="cuda") -> MsmMask:
     k = _fq_limbs(spec)
-    return MsmMask(points_to_torch(src.in_mask, device, k),
-                   points_to_torch(src.out_mask, device, k))
+    return MsmMask(points_to_torch(_get(src, "in_mask"), device, k),
+                   points_to_torch(_get(src, "out_mask"), device, k))
 
 
 def prove_masks_from(src, spec, device="cuda") -> ProveMasks:
     return ProveMasks(
-        fft_masks=fft_masks_from(src.fft_masks, spec, device),
-        degred_mask=degred_mask_from(src.degred_mask, spec, device),
-        g1_msm_masks=[msm_mask_from(m, spec, device) for m in src.g1_msm_masks],
-        g2_msm_mask=msm_mask_from(src.g2_msm_mask, spec, device),
+        fft_masks=fft_masks_from(_get(src, "fft_masks"), spec, device),
+        degred_mask=degred_mask_from(_get(src, "degred_mask"), spec, device),
+        g1_msm_masks=[msm_mask_from(m, spec, device) for m in _get(src, "g1_msm_masks")],
+        g2_msm_mask=msm_mask_from(_get(src, "g2_msm_mask"), spec, device),
     )
 
 

@@ -198,3 +198,6 @@ class FftMask:
             in_mask=in_shares.transpose(0, 1).contiguous(),
             out_mask=out_shares.transpose(0, 1).contiguous(),
         )
+
+    def party(self, i):
+        return FftMask(in_mask=self.in_mask[i], out_mask=self.out_mask[i])

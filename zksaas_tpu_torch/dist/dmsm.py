@@ -82,3 +82,7 @@ class MsmMask:
         return MsmMask(
             in_mask=fixed_base_mul(curve, in_sh), out_mask=fixed_base_mul(curve, out_sh)
         )
+
+    def party(self, i):
+        return MsmMask(in_mask=tuple(c[i] for c in self.in_mask),
+                       out_mask=tuple(c[i] for c in self.out_mask))

@@ -107,6 +107,14 @@ class ProveMasks:
         g2_msm = MsmMask.sample(pp, g2, ks[5], dev)
         return ProveMasks(fft_masks, degred_mask, g1_msm, g2_msm)
 
+    def party(self, i):
+        return ProveMasks(
+            fft_masks=[m.party(i) for m in self.fft_masks],
+            degred_mask=self.degred_mask.party(i),
+            g1_msm_masks=[m.party(i) for m in self.g1_msm_masks],
+            g2_msm_mask=self.g2_msm_mask.party(i),
+        )
+
 
 def d_prove(pp, g1, g2, crs, qap_share, a_share, ax_share, r_share, s_share,
             masks: ProveMasks, net, rng, times: dict | None = None):

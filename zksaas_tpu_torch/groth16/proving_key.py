@@ -9,6 +9,7 @@ the point at infinity.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 from ..curves.curve import JCurve
@@ -25,6 +26,10 @@ def _pack_query(pp: PackedSharingParams, curve: JCurve, pts: list, device):
     P = curve.encode(padded, shape=(nch, l), device=device)
     shares = pp.det_pack_g(curve, P)  # (nch, n)
     return tuple(c.transpose(0, 1).contiguous() for c in shares)  # (n, nch)
+
+
+# the shared query vectors, point tuples with a leading party axis
+SHARED = ("s", "u", "w", "h", "v")
 
 
 @dataclass
@@ -49,6 +54,11 @@ class PackedProvingKeyShare:
     alpha_g1: tuple
     beta_g1: tuple
     beta_g2: tuple
+
+    def party(self, i):
+        """Party i's shares; the clear elements are shared by all."""
+        return dataclasses.replace(
+            self, **{k: tuple(c[i] for c in getattr(self, k)) for k in SHARED})
 
 
 def pack_proving_key(keys: Groth16Keys, pp: PackedSharingParams, g1: JCurve, g2: JCurve,

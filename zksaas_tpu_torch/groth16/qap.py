@@ -32,6 +32,10 @@ class PackedQAPShare:
     c: torch.Tensor
     dom: Radix2Domain
 
+    def party(self, i):
+        return PackedQAPShare(self.num_inputs, self.num_constraints, self.a[i], self.b[i],
+                              self.c[i], self.dom)
+
 
 def qap_pack(pp: PackedSharingParams, r1cs: R1CS, z: list[int], rng, device="cuda"):
     """Dealer-side packing of the QAP vectors (qap.rs:91-135)."""

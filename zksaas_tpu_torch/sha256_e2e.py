@@ -15,12 +15,19 @@ groups.  Runs on the CUDA device (there is no CPU fallback) and prints one
 JSON line with the curve, the timed prove's latency, the phase times,
 each kernel's launches during that prove, in all and per field, and the
 unpacked proof (affine a, b, c as integers).
+
+With ZKSAAS_JOURNAL=<dir> set, the net is a JournalNet over that directory
+(comm/journal.py) and the one timed prove runs with no warm-up: every round
+is recorded, and a second run with the same directory resumes, replaying
+the recorded rounds from disk (its latency is then the resume's cost, not
+a fresh prove's); `detail` gives `replayed` beside `rounds`.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import random
 import sys
 import time
@@ -29,7 +36,7 @@ import torch
 
 from . import kernels
 from .circom.sha256 import sha256_two_inputs
-from .comm.net import LocalNet
+from .comm import JournalNet, LocalNet
 from .curves.curve import CURVE_FAMILIES, curve_g1, curve_g2
 from .device import resolve_device
 from .fields.spec import FIELDS
@@ -73,14 +80,25 @@ def setup(a_in: int, b_in: int, dev, times: dict, curve: str = "bn254"):
     return r1cs, z, vk, args
 
 
-def main(a_in: int = 1, b_in: int = 2, device="cuda", curve: str = "bn254") -> dict:
+def main(a_in: int = 1, b_in: int = 2, device="cuda", curve: str = "bn254",
+         dealt: dict | None = None) -> dict:
+    """The flagship's JSON result.  `dealt`, when given, receives the
+    dealer's state (r1cs, z, vk and d_prove's arguments up to the net,
+    `args`), so a caller can prove the same keys over another net."""
     dev = resolve_device(device)
     times: dict = {}
     t_all = time.perf_counter()
     r1cs, z, vk, args = setup(a_in, b_in, dev, times, curve)
     pp, g1, g2, qap_share, net = args[0], args[1], args[2], args[4], args[-1]
-    with span("prove_warmup", times):  # first calls build tables and caches
-        d_prove(*args, generator(10))
+    if dealt is not None:
+        dealt.update(r1cs=r1cs, z=z, vk=vk, args=args[:-1])
+    journal = os.environ.get("ZKSAAS_JOURNAL")
+    if journal:
+        net = JournalNet(net, journal)
+        args = args[:-1] + (net,)
+    else:
+        with span("prove_warmup", times):  # first calls build tables and caches
+            d_prove(*args, generator(10))
     before = kernels.save_launches()
     rounds_before = net.rounds
     prove_phases: dict = {}
@@ -111,6 +129,7 @@ def main(a_in: int = 1, b_in: int = 2, device="cuda", curve: str = "bn254") -> d
             "launches": launches,
             "launches_by_field": by_field,
             "rounds": net.rounds - rounds_before,
+            **({"replayed": net.replayed} if journal else {}),
             "total_wall_s": time.perf_counter() - t_all,
             "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
             "proof": {"a": a, "b": b, "c": c},
