@@ -55,7 +55,18 @@
    round raises, (c) with the last record deleted, resuming over a LocalNet
    that must run exactly one live round; each gives the flagship's proof;
    it logs the records' bytes and each step's seconds;
-9. prints the kernels line and, last, the device line.
+9. proves the BN254 flagship with the same CRS, dealer shares, r and s
+   as 8 ranks of a torch.distributed gloo group on the same card
+   (zksaas_tpu_torch/spmd_prove.py over comm/net.py::SpmdNet): this process
+   is rank 0 and spawns ranks 1-7; one warm-up prove and one timed; the
+   unpacked proof must equal the LocalNet flagship's and pass the pairing
+   check, every rank must exit 0, rank 0's timed d_prove must launch every
+   kernel, and every rank's counters must show both fft rounds as
+   all_to_all, shift, all_to_all, deg_red as two all_to_alls, and the five
+   msm rounds and the collection as all_gathers alone; it logs each
+   round's bytes and seconds, the host staging seconds, the spawn and
+   bring-up seconds, and the timed prove beside the LocalNet flagship's;
+10. prints the kernels line and, last, the device line.
 
 Exits non-zero, before printing any result, when no CUDA device is present
 or any phase fails.  Imports nothing of JAX.
@@ -667,6 +678,69 @@ def run_host_star(dealt, want):
     return row, ok, counts
 
 
+def spmd_rounds(log):
+    """SpmdNet's collective log -> one entry a protocol round (its kind from
+    host_prove.ROUND_KINDS, its ops in order, bytes, seconds)."""
+    from zksaas_tpu_torch.host_prove import ROUND_KINDS
+
+    rounds = []
+    for e in log:
+        if not rounds or rounds[-1]["round"] != e["round"]:
+            kind = ROUND_KINDS[e["round"] - 1] if e["round"] <= len(ROUND_KINDS) else "extra"
+            rounds.append(dict(round=e["round"], kind=kind, net_kind=e["kind"], ops=[],
+                               bytes_out=0, bytes_in=0, s=0.0, stage_s=0.0))
+        r = rounds[-1]
+        r["ops"].append(e["op"])
+        for k in ("bytes_out", "bytes_in", "s", "stage_s"):
+            r[k] += e[k]
+    return rounds
+
+
+def spmd_path_checks(res):
+    """What the spmd path must show: both fft rounds and deg_red as
+    all_to_all pairs (the fft's with the boundary shift between them), the
+    five msm rounds and the collection as all_gathers alone, on every rank."""
+    from zksaas_tpu_torch.host_prove import ROUND_KINDS
+
+    rounds = spmd_rounds(res["rounds"])
+    want = [("fft", ["all_to_all", "shift", "all_to_all"])] * 2 + [("deg_red", ["all_to_all"] * 2)]
+    checks = [("9 rounds", [r["kind"] for r in rounds] == list(ROUND_KINDS))]
+    for r, (kind, ops) in zip(rounds, want):
+        checks.append((f"round {r['round']} sharded {kind}", r["net_kind"] == kind and r["ops"] == ops))
+    for r in rounds[3:]:
+        checks.append((f"round {r['round']} {r['kind']} all_gathers",
+                       r["net_kind"] == "gather" and set(r["ops"]) == {"all_gather"}))
+    per_rank = [(st["rounds"], st["all_to_all"], st["shift"]) for st in res["stats"]]
+    checks.append(("every rank: 9 rounds, 6 all_to_all, 2 shifts",
+                   per_rank == [(9, 6, 2)] * len(res["stats"])))
+    return rounds, checks
+
+
+def run_spmd(dealt, want):
+    """The BN254 flagship's keys, shares, r and s as 8 ranks over gloo on
+    this card: this process rank 0, 7 spawned.  Returns as run_host_star
+    does."""
+    from zksaas_tpu_torch import spmd_prove
+    from zksaas_tpu_torch.groth16.local import Proof, verify
+
+    args, r1cs = dealt["args"], dealt["r1cs"]
+    res, secs, counts = counted(lambda: spmd_prove.prove_spmd(
+        *args, 10, "gloo", timeout=900.0, warmup=True))
+    proof = unpack_proof(*args[:3], res["shares"])
+    verified = verify(dealt["vk"], dealt["z"][1 : r1cs.num_instance], Proof(*proof))
+    rounds, checks = spmd_path_checks(res)
+    checks = [("equal", proof == want), ("verified", verified),
+              ("every rank exits 0", res["exitcodes"] == [0] * (args[0].n - 1)),
+              ("every kernel in rank 0's timed prove",
+               all(n > 0 for n in res["launches"].values()))] + checks
+    row = dict(case=f"sha256 bn254 m=2^16, {args[0].n} ranks, gloo on one card",
+               checks=dict((k, bool(v)) for k, v in checks), exitcodes=res["exitcodes"],
+               stats=res["stats"], rounds=rounds, times_s=res["times"],
+               rank_times_s=res["rank_times"], prove_phases_s=res["prove_phases"],
+               prove_launches=res["launches"], call_s=secs)
+    return row, all(v for _, v in checks), counts
+
+
 class _NoNet:
     """A net whose round raises: a replay that reaches it failed."""
 
@@ -860,12 +934,15 @@ def main():
             raise SystemExit(f"{name} never launched montmul")
         torch.cuda.empty_cache()
 
-    # the deployment's transport and the round journal, on the BN254
-    # flagship's dealer state; each must give the LocalNet flagship's proof
+    # the deployment's transport, the round journal and the SPMD path, on
+    # the BN254 flagship's dealer state; each must give the LocalNet
+    # flagship's proof
     p = paths["bn254"]["res"]["detail"]["proof"]
     want = (p["a"], p["b"], p["c"])
-    for name, run in (("host_star", run_host_star), ("journal", run_journal)):
+    for name, run in (("host_star", run_host_star), ("journal", run_journal),
+                      ("spmd", run_spmd)):
         row, ok, phases[name] = run(dealt, want)
+        row["localnet_prove_s"] = paths["bn254"]["res"]["value"]
         log(f"{name} {json.dumps(dict(row, launches=phases[name]['launches']))}")
         if not ok:
             raise SystemExit(f"the {name} path failed: {row}")

@@ -1,7 +1,8 @@
 """The port stands alone and runs on the card by default.
 
 A fresh interpreter imports every module of zksaas_tpu_torch (d_pp, Gao,
-serial, the TCP star, HostStarNet, the journal and host_prove among them)
+serial, the TCP star, HostStarNet, the journal, host_prove, spmd_prove and
+the wasm witness generator among them)
 and must end up with neither jax, zksaas_tpu nor cryptography loaded (the
 star imports cryptography only to make a certificate), and no module of
 the port may import pickle.  The entry points (the flagship over BN254 and
@@ -55,7 +56,9 @@ for n in names:
 assert len(names) > 30, names
 new = {"zksaas_tpu_torch.dist.dpp", "zksaas_tpu_torch.pss.gao", "zksaas_tpu_torch.utils.serial",
        "zksaas_tpu_torch.comm.star", "zksaas_tpu_torch.comm.host_net",
-       "zksaas_tpu_torch.comm.journal", "zksaas_tpu_torch.host_prove"}
+       "zksaas_tpu_torch.comm.journal", "zksaas_tpu_torch.host_prove",
+       "zksaas_tpu_torch.spmd_prove", "zksaas_tpu_torch.circom.wasm",
+       "zksaas_tpu_torch.circom.witness_calc", "zksaas_tpu_torch.circom.generate_witness"}
 assert new <= set(names), sorted(new - set(names))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "zksaas_tpu", "cryptography"))
 assert not bad, bad
@@ -82,7 +85,7 @@ print("ok", len(names))
 
 
 _SETUP = """
-from zksaas_tpu_torch import host_prove, sha256_e2e
+from zksaas_tpu_torch import host_prove, sha256_e2e, spmd_prove
 from zksaas_tpu_torch.circom.r1cs import ConstraintBuilder
 from zksaas_tpu_torch.curves.curve import curve_g1, curve_g2
 from zksaas_tpu_torch.curves.pippenger import msm_best
@@ -105,6 +108,7 @@ pp = pss(BN254_FR, 2)
 ENTRY_POINTS = {
     "sha256_e2e": "sha256_e2e.main({})",
     "host_prove": "host_prove.prove_king(pp, curve_g1(), curve_g2(), *[None] * 7, generator(1){})",
+    "spmd_prove": "spmd_prove.prove_spmd(pp, curve_g1(), curve_g2(), *[None] * 7, 1, 'gloo'{})",
     "sha256_e2e_bls12_381": "sha256_e2e.main(curve='bls12_381'{})",
     "field_encode": "field(BN254_FR).encode([1, 2]{})",
     "qap_pack": "qap_pack(pp, r1cs, z, generator(1){})",
@@ -118,9 +122,10 @@ ENTRY_POINTS = {
 
 # more of the dealer's entry points, checked beside qap_pack
 DEALER = ("PpBlind.sample(pp, 4, generator(1){})", "libsnark_masks(pp, 8, generator(1){})")
-# whole proves, too big for this test on the CPU: the flagship, and the king
-# of the multi-process prove, which tests/test_torch_host_net.py runs there
-FULL_PROVES = ("sha256_e2e", "sha256_e2e_bls12_381", "host_prove")
+# whole proves, too big for this test on the CPU: the flagship, the king of
+# the multi-process prove and the SPMD prove, which tests/test_torch_host_net.py
+# and tests/test_torch_spmd.py run there
+FULL_PROVES = ("sha256_e2e", "sha256_e2e_bls12_381", "host_prove", "spmd_prove")
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))

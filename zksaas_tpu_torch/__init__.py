@@ -13,12 +13,15 @@ run.  Nothing here imports jax or zksaas_tpu.
   ntt/      radix-2 domains and the host NTT oracle
   pss/      packed secret sharing
   comm/     the star protocol: LocalNet (all parties in one process), the
-            TCP star and HostStarNet (a process a party), JournalNet
-  dist/     d_fft/d_ifft, deg_red, d_msm, d_pp
+            TCP star and HostStarNet (a process a party), SpmdNet (a
+            torch.distributed rank a party), JournalNet
+  dist/     d_fft/d_ifft, deg_red, d_msm, d_pp; the sharded king paths of
+            d_fft/d_ifft and deg_red under SpmdNet
   groth16/  QAP packing, extended witness, CRS packing, d_prove, host oracle
-  circom/   R1CS and the SHA-256 fixture circuit
+  circom/   R1CS, the SHA-256 fixture circuit, the wasm witness generator
   sha256_e2e.py  the flagship distributed prove (python -m ...)
   host_prove.py  a prove as a king and n - 1 spawned client processes
+  spmd_prove.py  a prove as n torch.distributed ranks, the caller rank 0
 """
 
 __version__ = "0.1.0"

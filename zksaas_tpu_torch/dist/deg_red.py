@@ -1,10 +1,11 @@
-"""Degree reduction (dist-primitives/src/utils/deg_red.rs), king path.
+"""Degree reduction (dist-primitives/src/utils/deg_red.rs).
 
 Port of zksaas_tpu/dist/deg_red.py.  After share-local multiplication the
 sharing degree doubles; the king unpacks (degree-2(t+l-1)-aware) and
 re-packs fresh degree-(t+l-1) shares: one gather and one scatter
 (deg_red.rs:80-126).  Parties blind with in_mask before sending and
-un-blind with out_mask (= -mask, re-packed) afterwards.
+un-blind with out_mask (= -mask, re-packed) afterwards.  Under SpmdNet the
+king's work is split over the ranks instead (`_deg_red_sharded`).
 """
 
 from __future__ import annotations
@@ -13,8 +14,30 @@ from dataclasses import dataclass
 
 import torch
 
+from ..comm.net import SpmdNet
 from ..pss.pss import PackedSharingParams
 from ..utils.rng import split
+
+
+def _deg_red_sharded(pp: PackedSharingParams, xm, rng, net: SpmdNet):
+    """The sharded king of the SPMD path: the chunk axis is split over the
+    ranks, each unpacks and re-packs an equal block of the sharings, and two
+    all_to_alls move 1/n of the all_gather's bytes.  Bit-equal to the king
+    path: the same unpack2 matrix, and the king's pads (every rank draws
+    them all from a generator seeded alike, and takes its block)."""
+    F = pp.F
+    n = pp.n
+    num = xm.shape[-2]
+    C = num // n
+    net.begin_round("deg_red")
+    # my shares of chunk block e -> rank e
+    recv = net.all_to_all(xm.reshape(n, C, F.k), 0, 0)
+    sh = recv.transpose(0, 1)  # (C, n, K): all parties' shares of my chunks
+    secrets = pp.unpack2(sh)  # (C, l, K)
+    pads = pp.rand_pads(rng, (num,), xm.device)
+    out = pp.pack(secrets, pads[net.rank * C : (net.rank + 1) * C])  # (C, n, K)
+    back = net.all_to_all(out, 1, 0)  # (n C, 1, K): my share of every chunk
+    return back.reshape(num, F.k)
 
 
 def deg_red(pp: PackedSharingParams, x_share, mask, net, rng, channel=0):
@@ -22,6 +45,8 @@ def deg_red(pp: PackedSharingParams, x_share, mask, net, rng, channel=0):
     returns re-packed degree-(t+l-1) shares."""
     F = pp.F
     xm = F.add(x_share, mask.in_mask)
+    if isinstance(net, SpmdNet) and xm.shape[-2] % pp.n == 0 and x_share.ndim == 2:
+        return F.add(_deg_red_sharded(pp, xm, rng, net), mask.out_mask)
 
     def king_fn(shares, parties):
         sh = shares.transpose(0, 1)  # (num, n_present, K)
