@@ -28,6 +28,8 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
+from ..utils.trace import span
+
 KingFn = Callable[[object, tuple], object]
 
 
@@ -70,7 +72,8 @@ class LocalNet:
         if self.drop:
             idx = torch.tensor(parties, device=_leaves(x)[0].device)
             x = _map(lambda a: a.index_select(0, idx), x)
-        return king_fn(x, parties)
+        with span("zk.net.king"):
+            return king_fn(x, parties)
 
 
 def _sync(dev):
@@ -213,5 +216,6 @@ class SpmdNet:
         rank's row of its output."""
         self.begin_round("gather")
         gathered = _map(self.all_gather, x)
-        out = king_fn(gathered, tuple(range(self.n_parties)))
+        with span("zk.net.king"):
+            out = king_fn(gathered, tuple(range(self.n_parties)))
         return _map(lambda a: a[self.rank], out)

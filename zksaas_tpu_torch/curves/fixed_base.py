@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..fields.spec import LIMB_BITS
+from ..utils.trace import span
 from .curve import JCurve
 
 _WINDOW = 4
@@ -54,6 +55,7 @@ def _table(curve: JCurve, device):
     return tuple(torch.from_numpy(a).to(device) for a in _table_np(curve))
 
 
+@span("zk.fixed_base")
 def fixed_base_mul(curve: JCurve, scalars_mont):
     """generator * s for a batch of scalars (..., K) -> points (...)."""
     fr = curve.fr

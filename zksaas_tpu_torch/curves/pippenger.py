@@ -16,6 +16,9 @@ inversion), sort_u32 (the keys), point_aadd (level 1), point_add (deeper
 levels, segment sums, the fold), point_madd_if and point_add_if (the
 queries), point_double (the fold).  The gathers and the searchsorted of
 the query starts are plain PyTorch, as the JAX package leaves them to XLA.
+Its four stages are the spans zk.msm.sort (the keys), zk.msm.inv (the
+affine points), zk.msm.tree (the tree and the queries) and zk.msm.fold (the
+segment sums and the window fold).
 
 Points are (X, Y, Z) tuples in the port's layout, (..., K) for G1 and
 (..., 2, K) for G2; a batch of MSMs (the parties of a d_msm) is one leading
@@ -34,6 +37,7 @@ import torch
 
 from ..fields.sortperm import sort_u32
 from ..fields.spec import LIMB_BITS
+from ..utils.trace import span
 from .point_ops import (
     point_aadd,
     point_add,
@@ -161,57 +165,63 @@ def msm_pippenger(curve, P, scalars_mont):
     W = 1 << wbits  # windows past n_windows have digit 0 and sum to infinity
     V = W * m  # sorted slots per MSM
 
-    raw = curve.fr.from_mont(scalars_mont.reshape(nb * m, -1)).view(nb, m, -1)
-    j = torch.arange(n_windows, device=dev)
-    per_limb = LIMB_BITS // c
-    digits = (raw[:, :, j // per_limb] >> (c * (j % per_limb))) & ((1 << c) - 1)
-    digits = torch.nn.functional.pad(digits.long(), (0, W - n_windows)).transpose(1, 2)
-    wtag = torch.arange(W, device=dev).view(1, W, 1)
-    slot = torch.arange(m, device=dev).view(1, 1, m)
-    keys = ((wtag << (c + L)) | (digits << L) | slot).reshape(nb, V).int()
-    skeys = sort_u32(keys)
-    # the slot in the low bits is the point's index: flat into (nb * m)
-    order = (skeys & (m - 1)).long() + torch.arange(nb, device=dev).view(nb, 1) * m
-    order = order.view(-1)
+    with span("zk.msm.sort"):
+        raw = curve.fr.from_mont(scalars_mont.reshape(nb * m, -1)).view(nb, m, -1)
+        j = torch.arange(n_windows, device=dev)
+        per_limb = LIMB_BITS // c
+        digits = (raw[:, :, j // per_limb] >> (c * (j % per_limb))) & ((1 << c) - 1)
+        digits = torch.nn.functional.pad(digits.long(), (0, W - n_windows)).transpose(1, 2)
+        wtag = torch.arange(W, device=dev).view(1, W, 1)
+        slot = torch.arange(m, device=dev).view(1, 1, m)
+        keys = ((wtag << (c + L)) | (digits << L) | slot).reshape(nb, V).int()
+        skeys = sort_u32(keys)
+        # the slot in the low bits is the point's index: flat into (nb * m)
+        order = (skeys & (m - 1)).long() + torch.arange(nb, device=dev).view(nb, 1) * m
+        order = order.view(-1)
 
-    xa, ya, infa = _to_affine(curve, tuple(x.reshape((nb * m,) + tail).contiguous() for x in P))
+    with span("zk.msm.inv"):
+        xa, ya, infa = _to_affine(curve, tuple(x.reshape((nb * m,) + tail).contiguous()
+                                               for x in P))
 
-    # the reduction tree over the sorted slots: level l holds the sums of
-    # aligned runs of 2^l slots; runs of at most m slots stay in one window
-    levels = [None]
-    if L >= 1:
-        lo, hi = order[0::2], order[1::2]
-        lev = point_aadd(spec, nc, (xa[lo], ya[lo]), (xa[hi], ya[hi]), infa[lo], infa[hi])
-        levels.append(lev)
-        for _ in range(2, L + 1):
-            halves = [_pairs(x, tail) for x in lev]
-            lev = point_add(spec, nc, tuple(h[0] for h in halves), tuple(h[1] for h in halves))
+    with span("zk.msm.tree"):
+        # the reduction tree over the sorted slots: level l holds the sums of
+        # aligned runs of 2^l slots; runs of at most m slots stay in one window
+        levels = [None]
+        if L >= 1:
+            lo, hi = order[0::2], order[1::2]
+            lev = point_aadd(spec, nc, (xa[lo], ya[lo]), (xa[hi], ya[hi]), infa[lo], infa[hi])
             levels.append(lev)
+            for _ in range(2, L + 1):
+                halves = [_pairs(x, tail) for x in lev]
+                lev = point_add(spec, nc, tuple(h[0] for h in halves),
+                                tuple(h[1] for h in halves))
+                levels.append(lev)
 
-    # suffix query (w, k), k = 1 .. 2^c - 1: the sorted slots [b, end of
-    # window w), b the first with key >= (w | k | 0), as the tree nodes
-    # given by the bits of r = end - b: node (b + r mod 2^l) >> l of level
-    # l for each set bit l
-    nk = (1 << c) - 1
-    ws = torch.arange(W, device=dev).repeat_interleave(nk)
-    ks = torch.arange(1, nk + 1, device=dev).repeat(W)
-    targets = ((ws << (c + L)) | (ks << L)).int().expand(nb, -1).contiguous()
-    b = torch.searchsorted(skeys, targets)  # (nb, W * nk)
-    r = (ws + 1) * m - b
-    row = torch.arange(nb, device=dev).view(nb, 1)
-    acc = tuple(x.contiguous() for x in curve.infinity((nb * W * nk,), dev))
-    for lv in range(L + 1):
-        has = (((r >> lv) & 1) == 1).view(-1)
-        node = torch.clamp((b + (r & ((1 << lv) - 1))) >> lv, max=(V >> lv) - 1)
-        idx = (node + row * (V >> lv)).view(-1)
-        if lv == 0:
-            pt = order[idx]
-            acc = point_madd_if(spec, nc, acc, (xa[pt], ya[pt]), has & ~infa[pt])
-        else:
-            acc = point_add_if(spec, nc, acc, tuple(x[idx] for x in levels[lv]), has)
+        # suffix query (w, k), k = 1 .. 2^c - 1: the sorted slots [b, end of
+        # window w), b the first with key >= (w | k | 0), as the tree nodes
+        # given by the bits of r = end - b: node (b + r mod 2^l) >> l of level
+        # l for each set bit l
+        nk = (1 << c) - 1
+        ws = torch.arange(W, device=dev).repeat_interleave(nk)
+        ks = torch.arange(1, nk + 1, device=dev).repeat(W)
+        targets = ((ws << (c + L)) | (ks << L)).int().expand(nb, -1).contiguous()
+        b = torch.searchsorted(skeys, targets)  # (nb, W * nk)
+        r = (ws + 1) * m - b
+        row = torch.arange(nb, device=dev).view(nb, 1)
+        acc = tuple(x.contiguous() for x in curve.infinity((nb * W * nk,), dev))
+        for lv in range(L + 1):
+            has = (((r >> lv) & 1) == 1).view(-1)
+            node = torch.clamp((b + (r & ((1 << lv) - 1))) >> lv, max=(V >> lv) - 1)
+            idx = (node + row * (V >> lv)).view(-1)
+            if lv == 0:
+                pt = order[idx]
+                acc = point_madd_if(spec, nc, acc, (xa[pt], ya[pt]), has & ~infa[pt])
+            else:
+                acc = point_add_if(spec, nc, acc, tuple(x[idx] for x in levels[lv]), has)
 
-    S = _psum_seg(curve, acc, nb * W)  # the window sums, (nb * W)
-    return _fold_windows(curve, tuple(x.view((nb, W) + tail) for x in S), c)
+    with span("zk.msm.fold"):
+        S = _psum_seg(curve, acc, nb * W)  # the window sums, (nb * W)
+        return _fold_windows(curve, tuple(x.view((nb, W) + tail) for x in S), c)
 
 
 def msm_best(curve, P, scalars_mont):

@@ -308,7 +308,7 @@ def point_add(spec, ncoord: int, P, Q):
             nl, nr, ncoord, *(c.data_ptr() for c in (*P, *Q, *out)), B, prm,
             kernels.stream_of(P[0]),
         )
-        kernels.check(kernels.POINT_ADD, rc, spec)
+        kernels.check(kernels.POINT_ADD, rc, B, spec)
     return out
 
 
@@ -324,7 +324,7 @@ def point_add_if(spec, ncoord: int, P, Q, cond):
             nl, nr, ncoord, *(c.data_ptr() for c in (*P, *Q, cond, *out)), B, prm,
             kernels.stream_of(P[0]),
         )
-        kernels.check(kernels.POINT_ADD_IF, rc, spec)
+        kernels.check(kernels.POINT_ADD_IF, rc, B, spec)
     return out
 
 
@@ -342,7 +342,7 @@ def point_double(spec, ncoord: int, P, k: int = 1):
             nl, nr, ncoord, *(c.data_ptr() for c in (*P, *out)), B, k, prm,
             kernels.stream_of(P[0]),
         )
-        kernels.check(kernels.POINT_DOUBLE, rc, spec)
+        kernels.check(kernels.POINT_DOUBLE, rc, B * k, spec)
     return out
 
 
@@ -358,7 +358,7 @@ def ring_mul(spec, ncoord: int, a, b):
             nl, nr, ncoord, a.data_ptr(), b.data_ptr(), out.data_ptr(), B, prm,
             kernels.stream_of(a),
         )
-        kernels.check(kernels.RING_MUL, rc, spec)
+        kernels.check(kernels.RING_MUL, rc, B, spec)
     return out
 
 
@@ -373,7 +373,7 @@ def ring_inv(spec, ncoord: int, a):
         rc = kernels.cuda_lib().zk_ring_inv(
             nl, nr, ncoord, a.data_ptr(), out.data_ptr(), B, prm, kernels.stream_of(a),
         )
-        kernels.check(kernels.RING_INV, rc, spec)
+        kernels.check(kernels.RING_INV, rc, B, spec)
     return out
 
 
@@ -390,7 +390,7 @@ def point_aadd(spec, ncoord: int, P, Q, inf1, inf2):
             nl, nr, ncoord, *(c.data_ptr() for c in (*P, *Q, inf1, inf2, *out)), B, prm,
             kernels.stream_of(P[0]),
         )
-        kernels.check(kernels.POINT_AADD, rc, spec)
+        kernels.check(kernels.POINT_AADD, rc, B, spec)
     return out
 
 
@@ -407,5 +407,5 @@ def point_madd_if(spec, ncoord: int, P, Q, cond):
             nl, nr, ncoord, *(c.data_ptr() for c in (*P, *Q, cond, *out)), B, prm,
             kernels.stream_of(P[0]),
         )
-        kernels.check(kernels.POINT_MADD_IF, rc, spec)
+        kernels.check(kernels.POINT_MADD_IF, rc, B, spec)
     return out

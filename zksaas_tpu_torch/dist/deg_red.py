@@ -17,6 +17,7 @@ import torch
 from ..comm.net import SpmdNet
 from ..pss.pss import PackedSharingParams
 from ..utils.rng import split
+from ..utils.trace import span
 
 
 def _deg_red_sharded(pp: PackedSharingParams, xm, rng, net: SpmdNet):
@@ -40,6 +41,7 @@ def _deg_red_sharded(pp: PackedSharingParams, xm, rng, net: SpmdNet):
     return back.reshape(num, F.k)
 
 
+@span("zk.deg_red")
 def deg_red(pp: PackedSharingParams, x_share, mask, net, rng, channel=0):
     """x_share: (..., num, K) packed-share values (num sharings per party);
     returns re-packed degree-(t+l-1) shares."""

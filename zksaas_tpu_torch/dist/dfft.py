@@ -33,6 +33,7 @@ from ..ntt.domain import Radix2Domain, powers
 from ..pss.pss import PackedSharingParams
 from ..utils.pack import rearrange_perm, stride_chunks
 from ..utils.rng import split
+from ..utils.trace import span
 
 
 @functools.cache
@@ -328,6 +329,7 @@ def _fft2_with_rearrange(pp, px, mask, rearrange, g, gen, net, rng, channel):
     return F.add(out_share, mask.out_mask)
 
 
+@span("zk.dfft")
 def d_fft(pp, pcoeff_share, mask, rearrange, dom: Radix2Domain, net, rng, channel=0):
     """Packed shares of (rearranged) coefficients -> packed shares of
     evaluations (d_fft, dfft/mod.rs:99-134)."""
@@ -337,6 +339,7 @@ def d_fft(pp, pcoeff_share, mask, rearrange, dom: Radix2Domain, net, rng, channe
     return _fft2_with_rearrange(pp, px, mask, rearrange, 1, dom.group_gen, net, rng, channel)
 
 
+@span("zk.difft")
 def d_ifft(pp, peval_share, mask, rearrange, dom: Radix2Domain, g: int, net, rng, channel=0):
     """Packed shares of (rearranged) evaluations -> packed shares of
     coefficients, optionally scaled by powers of g (dfft/mod.rs:137-175)."""

@@ -22,8 +22,10 @@ from ..curves.fixed_base import fixed_base_mul
 from ..curves.pippenger import msm_best
 from ..pss.pss import PackedSharingParams
 from ..utils.rng import split
+from ..utils.trace import span
 
 
+@span("zk.dmsm.local")
 def d_msm_local(curve: JCurve, bases_share, scalars_share, mask):
     """Per-party local stage: the MSM hot loop plus the input mask."""
     if scalars_share.shape[-2] >= 256:
@@ -33,6 +35,7 @@ def d_msm_local(curve: JCurve, bases_share, scalars_share, mask):
     return curve.add(c_share, mask.in_mask)
 
 
+@span("zk.dmsm.reduce")
 def d_msm_reduce(pp: PackedSharingParams, curve: JCurve, c_share, mask, net, channel=0):
     """Communication stage: gather to the king, unpack + sum, re-broadcast
     as a repeated packed sharing, unmask (dmsm/mod.rs:75-101)."""

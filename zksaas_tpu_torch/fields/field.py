@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.trace import span
 from .limbs import M16, normalize
 from .montmul import _consts, montmul
 from .spec import LIMB_BITS, LIMB_MASK, FieldSpec
@@ -80,6 +81,7 @@ class Field:
         self.p = spec.p
         self.k = spec.nlimbs
         self.r_mod_p = spec.r_mod_p
+        self.rand_bytes = 0  # bytes rand() has drawn on the host (and copied to the device)
         e = spec.p - 2
         self._inv_bits = [(e >> i) & 1 for i in reversed(range(e.bit_length()))]
 
@@ -250,16 +252,20 @@ class Field:
     # randomness
     # ------------------------------------------------------------------
 
+    @span("zk.rand")
     def rand(self, gen: torch.Generator, shape=(), device="cuda"):
         """Uniform field elements in Montgomery form: 2K random 16-bit limbs
         (twice the modulus width) reduced to hi R + lo mod p, as
         jfield.py:388-403 does, so the mod-p bias is ~2^-256.  Both halves
         are Montgomery products (hi R^2 R^-1 and lo (R mod p) R^-1), exact
-        for a raw operand below R.  `gen` is a CPU generator."""
+        for a raw operand below R.  `gen` is a CPU generator; `rand_bytes`
+        counts the int32 limbs it draws, 8 K bytes an element."""
         dev = resolve_device(device)
         shape = tuple(shape)
         raw = torch.randint(0, 1 << 16, shape + (2 * self.k,), generator=gen,
-                            dtype=torch.int32).to(dev)
+                            dtype=torch.int32)
+        self.rand_bytes += raw.numel() * raw.element_size()
+        raw = raw.to(dev)
         lo, hi = raw[..., : self.k], raw[..., self.k :]
         r2 = torch.tensor(_int_to_limbs(self.spec.r2_mod_p, self.k), dtype=torch.int32,
                           device=dev)

@@ -161,5 +161,5 @@ def montmul(spec, a, b):
     rc = kernels.cuda_lib().zk_montmul(
         nl, a.data_ptr(), b.data_ptr(), out.data_ptr(), n, prm, kernels.stream_of(a)
     )
-    kernels.check(kernels.MONTMUL, rc, spec)
+    kernels.check(kernels.MONTMUL, rc, n, spec)
     return out

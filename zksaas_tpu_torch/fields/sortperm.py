@@ -46,5 +46,5 @@ def sort_u32(keys):
                               dtype=torch.int32, device=out.device)
         rc = lib.zk_sort_u32(out.data_ptr(), scratch.data_ptr(), out.numel(), n,
                              kernels.stream_of(out))
-        kernels.check(kernels.SORT_U32, rc)
+        kernels.check(kernels.SORT_U32, rc, out.numel())
     return out

@@ -102,9 +102,10 @@ class ProveMasks:
     def sample(pp: PackedSharingParams, g1: JCurve, g2: JCurve, m: int, rng, device="cuda"):
         dev = resolve_device(device)
         ks = split(rng, 6)
-        fft_masks, degred_mask = circom_masks(pp, m, ks[0], dev)
-        g1_msm = [MsmMask.sample(pp, g1, ks[1 + i], dev) for i in range(4)]
-        g2_msm = MsmMask.sample(pp, g2, ks[5], dev)
+        with span("zk.masks"):
+            fft_masks, degred_mask = circom_masks(pp, m, ks[0], dev)
+            g1_msm = [MsmMask.sample(pp, g1, ks[1 + i], dev) for i in range(4)]
+            g2_msm = MsmMask.sample(pp, g2, ks[5], dev)
         return ProveMasks(fft_masks, degred_mask, g1_msm, g2_msm)
 
     def party(self, i):

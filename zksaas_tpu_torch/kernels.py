@@ -18,9 +18,12 @@ BLS12-381 (12 limbs, nr = -1) and BLS12-377 (12 limbs, nr = -5);
 
 Each kernel has one `Kernel` record here.  Its wrapper (fields/montmul.py,
 curves/point_ops.py, fields/sortperm.py) calls `check`, which adds one to
-`launches` and to the spec's entry of `by_field` where it launches the
-kernel and nowhere else, so a run can show which kernels, and which field
-instances of them, its path went through.
+`launches` and to the spec's entry of `by_field`, and the launch's lanes to
+`elements`, where it launches the kernel and nowhere else, so a run can
+show which kernels, and which field instances of them, its path went
+through, and how much work they did.  A lane is one Montgomery product,
+one point (one point for each of k doublings of the k-fold double), one
+ring element or one sort key.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ class Kernel:
     source: str  # path in the repo
     replaces: str  # the TPU kernel (file:line) it is the port of
     launches: int = 0
+    elements: int = 0  # lanes over all launches
     by_field: dict = field(default_factory=dict)  # launches per field spec name
 
 
@@ -96,17 +100,19 @@ KERNELS = (MONTMUL, POINT_ADD, POINT_ADD_IF, POINT_DOUBLE, RING_MUL, RING_INV, P
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.elements = 0
         k.by_field.clear()
 
 
 def save_launches():
     """The counters as they stand, for `restore_launches`."""
-    return [(k.launches, dict(k.by_field)) for k in KERNELS]
+    return [(k.launches, dict(k.by_field), k.elements) for k in KERNELS]
 
 
 def restore_launches(saved) -> None:
-    for k, (n, by) in zip(KERNELS, saved):
+    for k, (n, by, elements) in zip(KERNELS, saved):
         k.launches = n
+        k.elements = elements
         k.by_field.clear()
         k.by_field.update(by)
 
@@ -262,12 +268,14 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check(kernel: Kernel, rc: int, spec=None) -> None:
-    """Raise on a refused launch; otherwise count it (and under spec.name)."""
+def check(kernel: Kernel, rc: int, elements: int, spec=None) -> None:
+    """Raise on a refused launch; otherwise count it (and under spec.name)
+    and its `elements` lanes."""
     if rc == NOT_BUILT:
         raise RuntimeError(f"{kernel.name}: no instance built for {spec.name if spec else rc}")
     if rc != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed with error {rc}")
     kernel.launches += 1
+    kernel.elements += elements
     if spec is not None:
         kernel.by_field[spec.name] = kernel.by_field.get(spec.name, 0) + 1

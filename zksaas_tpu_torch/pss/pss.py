@@ -26,6 +26,7 @@ from ..fields.field import Field, field
 from ..fields.spec import FieldSpec
 from ..ntt.domain import domain
 from ..ntt.ref import fft_ref, ifft_ref
+from ..utils.trace import span
 
 
 def _matrix_from_map(fn, nin: int, nout: int, p: int) -> list[list[int]]:
@@ -155,6 +156,7 @@ class PackedSharingParams:
     def unpack_g(self, curve, shares):
         return curve.matvec(self.M_unpack, shares)
 
+    @span("zk.unpack2")
     def unpack2_g(self, curve, shares):
         return curve.matvec(self.M_unpack2, shares)
 
