@@ -20,8 +20,12 @@
    on 0, 1, the Montgomery one and p - 1 (in Fq2 beside 0) among random
    elements; the key sort also at 8 x 2^19 keys and on edge cases (one
    row of 256 keys, rows shorter than a tile, all keys equal, all with bit
-   31 set, a constant high byte).  Each check's inputs come from a
-   generator seeded by its kernel, ring and shape;
+   31 set, a constant high byte); field_rand on the key its plain
+   version (fields/field.py::rand_plain) runs on the card: the 28 m + 34
+   elements of a BLS12-381 proof (m = 2^18) in one call, timed, then 2^16
+   and 2^18 elements of BN254 Fr and BLS12-381 Fr and 2^16 + 1 of
+   BLS12-381 Fq.  Each check's inputs come from a generator seeded by its
+   kernel, ring and shape;
 4. runs the bucket-Pippenger MSM (curves/pippenger.py::msm_best) on the
    card for one party's 2^15 BN254 G1 points and holds its affine result
    against scalar_mul_w4 + sum on the same card;
@@ -111,6 +115,16 @@ RING_MUL_WIDTHS = (1 << 18, 1 << 17, 8192, 1024, 3001, (1 << 17) + 1)
 PROVE_RING_MUL, PROVE_RING_INV, PROVE_MADD_IF = 128, 5, 5
 # the d_pp phase: num/den pairs, l = 2 to a packed chunk
 DPP_PAIRS = 1 << 16
+# Field.rand's elements in one BLS12-381 proof at m = 2^18 (28 m + 34), and
+# the 32-bit additions, xors and rotates of a ChaCha20 block (20 rounds of
+# 4 quarter rounds of 12, and the final 16 additions).  field_rand's bound
+# by operations counts these and its products' multiplies against the
+# SM's dispatch rate, 4 schedulers x 32 lanes a clock, twice PEAK_OPS: its
+# additions can go to the multiply-add pipe beside the xors and rotates,
+# so PEAK_OPS alone would not bound it from below
+RAND_LANES = 28 * (1 << 18) + 34
+OPS_CHACHA_BLOCK = 20 * 4 * 12 + 16
+DISPATCH_PER_MUL = 2
 
 
 def log(msg):
@@ -172,6 +186,30 @@ def check_montmul(spec, n):
     bms, by = bound(3 * n * spec.nlimbs * 4, n * ops_per_mul(spec))
     return dict(case=f"{spec.name} n=2^{n.bit_length() - 1}", field=spec.name, max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
+def check_field_rand(spec, n):
+    """zk_field_rand (through Field.rand) against rand_plain on the card, on
+    the key Field.rand draws from the same generator state."""
+    from zksaas_tpu_torch import kernels
+    from zksaas_tpu_torch.fields.field import field, rand_blocks, rand_plain
+
+    F = field(spec)
+    gen = seeded("field_rand", spec.name, n)
+    state = gen.get_state()
+    key = torch.randint(0, 1 << 32, (8,), generator=gen, dtype=torch.int64)
+    gen.set_state(state)
+    saved = kernels.save_launches()
+    out = F.rand(gen, (n,), "cuda")
+    torch.cuda.synchronize()
+    plain_ms = cuda_ms(lambda: rand_plain(spec, key, (n,), "cuda"), 1)
+    err = max_err([out], [rand_plain(spec, key, (n,), "cuda")])
+    ms = cuda_ms(lambda: F.rand(gen, (n,), "cuda"), 20)
+    kernels.restore_launches(saved)
+    ops = rand_blocks(spec, n) * OPS_CHACHA_BLOCK + 2 * n * ops_per_mul(spec)
+    bms, by = bound(n * spec.nlimbs * 4, ops / DISPATCH_PER_MUL)
+    return dict(case=f"{spec.name} n={n}", field=spec.name, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
 
 def _v(m, c):
@@ -840,7 +878,8 @@ def main():
 
     from zksaas_tpu_torch import kernels
     from zksaas_tpu_torch.curves.curve import CURVE_FAMILIES, curve_g1, curve_g2
-    from zksaas_tpu_torch.fields.spec import BLS12_377_FQ, BLS12_381_FQ, BN254_FQ, BN254_FR
+    from zksaas_tpu_torch.fields.spec import (BLS12_377_FQ, BLS12_381_FQ, BLS12_381_FR,
+                                              BN254_FQ, BN254_FR)
 
     t0 = time.perf_counter()
     kernels.cuda_lib()
@@ -856,6 +895,11 @@ def main():
 
     for spec in (BN254_FR, BN254_FQ, BLS12_381_FQ, BLS12_377_FQ):
         record([("montmul", check_montmul(spec, 1 << 20))])
+    for spec, n in ((BLS12_381_FR, RAND_LANES), (BN254_FR, 1 << 16), (BN254_FR, 1 << 18),
+                    (BLS12_381_FR, 1 << 16), (BLS12_381_FR, 1 << 18),
+                    (BLS12_381_FQ, (1 << 16) + 1)):
+        record([("field_rand", check_field_rand(spec, n))])
+    torch.cuda.empty_cache()
     # every field instance at the flagship's shapes: points at 2^18 (G1)
     # and 2^16 (G2), and at the binary scalar muls' 16; the inversion tree
     # and affine products over 8 x 2^15 points, tree level 1 over 8 x 2^20 / 2
@@ -904,7 +948,7 @@ def main():
             raise SystemExit(f"kernels never launched on the {fam} path: {idle}")
         fq = f"{fam}_fq"
         missed = [n for n, by in res["detail"]["launches_by_field"].items()
-                  if n not in ("montmul", "sort_u32") and not by.get(fq)]
+                  if n not in ("montmul", "sort_u32", "field_rand") and not by.get(fq)]
         if missed:
             raise SystemExit(f"the {fam} prove never launched the {fq} instance of {missed}")
         want = dict(ring_mul=PROVE_RING_MUL, ring_inv=PROVE_RING_INV,

@@ -18,6 +18,7 @@ from zksaas_tpu_torch import convert
 from zksaas_tpu_torch.fields import limbs as tlimbs
 from zksaas_tpu_torch.fields import montmul as tmontmul
 from zksaas_tpu_torch.fields.field import Field as TField
+from zksaas_tpu_torch.fields.field import _limbs_to_int, chacha20_keystream, rand_blocks
 from zksaas_tpu_torch.fields.spec import FIELDS as TFIELDS
 
 from test_torch_heap import release_heap  # noqa: F401  (autouse)
@@ -119,6 +120,51 @@ def test_rand_is_canonical_and_seeded(name):
     assert len(set(int(v) for v in vals)) == vals.size
     # Montgomery limbs of canonical residues re-encode to themselves
     assert torch.equal(tf.encode(list(vals), device="cpu").reshape(r1.shape), r1)
+
+
+RAND_NAMES = ["bn254_fr", "bls12_381_fr", "bls12_381_fq"]
+
+
+def _key(seed):
+    """The key Field.rand draws first from a generator seeded with `seed`."""
+    return torch.randint(0, 1 << 32, (8,), generator=torch.Generator().manual_seed(seed),
+                         dtype=torch.int64)
+
+
+@pytest.mark.parametrize("name", RAND_NAMES)
+def test_rand_is_chacha20_reduced_fresh_and_seeded(name):
+    """Field.rand's plain keystream is the cryptography package's ChaCha20
+    for the drawn key (nonce 0, block counter from 0), and element i holds
+    words [K i, K (i + 1)) reduced, as Montgomery limbs, to hi R + lo mod
+    p: lo the first K / 2 words, hi the next, little-endian.  Two calls on
+    one generator give different elements, every element's limbs are below
+    p, one seed gives the same values, and a call past the 2^32 blocks of
+    one key raises before it draws."""
+    pytest.importorskip("cryptography")
+    from cryptography.hazmat.primitives.ciphers import Cipher, algorithms
+
+    tf = TField(TFIELDS[name])
+    n, k32 = 7, tf.k // 2
+    key = _key(21)
+    nblocks = rand_blocks(tf.spec, n)
+    words = chacha20_keystream(key, nblocks).reshape(-1)
+    key_bytes = b"".join(w.to_bytes(4, "little") for w in key.tolist())
+    stream = Cipher(algorithms.ChaCha20(key_bytes, bytes(16)), mode=None).encryptor()
+    assert words.numpy().astype("<u4").tobytes() == stream.update(bytes(64 * nblocks))
+    got = tf.rand(torch.Generator().manual_seed(21), (n,), device="cpu")
+    for row, limbs in zip(words[: n * tf.k].reshape(n, tf.k).tolist(), got):
+        lo = sum(w << (32 * j) for j, w in enumerate(row[:k32]))
+        hi = sum(w << (32 * j) for j, w in enumerate(row[k32:]))
+        assert _limbs_to_int(limbs.tolist()) == (hi * tf.spec.R + lo) % tf.p
+
+    gen = torch.Generator().manual_seed(4)
+    a, b = tf.rand(gen, (2, 33), device="cpu"), tf.rand(gen, (2, 33), device="cpu")
+    assert torch.equal(a, tf.rand(torch.Generator().manual_seed(4), (2, 33), device="cpu"))
+    va, vb = ({_limbs_to_int(r) for r in x.reshape(-1, tf.k).tolist()} for x in (a, b))
+    assert len(va) == len(vb) == 66 and not va & vb
+    assert max(va | vb) < tf.p
+    with pytest.raises(ValueError, match="ChaCha20 blocks"):
+        tf.rand(gen, ((1 << 36) // tf.k + 1,), device="cpu")
 
 
 @pytest.mark.parametrize("count", [16, 300])

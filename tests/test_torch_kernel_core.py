@@ -31,7 +31,7 @@ from zksaas_tpu_torch.curves.curve import curve_g1, curve_g2
 from zksaas_tpu_torch.fields.field import field
 from zksaas_tpu_torch.fields.montmul import montmul_plain
 from zksaas_tpu_torch.fields.sortperm import sort_u32_plain
-from zksaas_tpu_torch.fields.spec import BN254_FQ, BN254_FR, fq2_nonresidue
+from zksaas_tpu_torch.fields.spec import FIELDS, BN254_FQ, BN254_FR, fq2_nonresidue
 
 from test_torch_heap import release_heap  # noqa: F401  (autouse)
 
@@ -89,6 +89,26 @@ def test_core_montmul_matches_plain(core, spec):
     nl, _, prm = kernels.field_args(spec)
     core.zkc_montmul(nl, _ptr(a), _ptr(b), _ptr(out), 300, prm)
     assert torch.equal(out, montmul_plain(spec, a.long(), b.long()).int())
+
+
+@pytest.mark.parametrize("name", ["bn254_fr", "bls12_381_fr", "bls12_381_fq"])
+def test_core_field_rand_matches_plain(core, name):
+    """zk_field_rand's core (an element a lane, from the one or two ChaCha20
+    blocks its words lie in) against Field.rand's plain version on the same
+    key: shape (), and an odd count of 37, which at K = 24 ends in the
+    middle of a block."""
+    spec = FIELDS[name]
+    F = field(spec)
+    nl, _, prm = kernels.field_args(spec)
+    for seed, shape in ((31, ()), (32, (37,))):
+        gen = torch.Generator().manual_seed(seed)
+        key = torch.randint(0, 1 << 32, (8,), generator=gen, dtype=torch.int64)
+        want = F.rand(torch.Generator().manual_seed(seed), shape, device="cpu")
+        out = torch.empty_like(want)
+        words = key.numpy().astype(np.uint32)
+        assert core.zkc_field_rand(nl, words.ctypes.data, _ptr(out), out.numel() // F.k,
+                                   prm) == 0
+        assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("ncoord", [1, 2], ids=["g1", "g2"])

@@ -175,6 +175,15 @@ def test_kernel_label_names_a_second_template_argument():
         assert _kernel_label(name) == f"ring_mul_kernel<{label}, 3>"
 
 
+def test_kernel_label_names_the_limbs_of_the_field_kernels():
+    """montmul_kernel<NL> and zk::field_rand_kernel<NL> (csrc/kernels.cu),
+    as ptxas named them on the card."""
+    assert _kernel_label("_ZN43_GLOBAL__N__ff0c5aa2_10_kernels_cu_d70e15ca14montmul_kernel"
+                         "ILi8EEEvPKiS2_PilN2zk11FieldParamsIXT_EEE") == "montmul_kernel<8>"
+    assert _kernel_label("_ZN2zk17field_rand_kernelILi12EEEvNS_9ChaChaKeyEPilNS_11FieldParams"
+                         "IXT_EEENS_2FqIXT_EEE") == "field_rand_kernel<12>"
+
+
 @pytest.mark.parametrize("raw,want", [
     ("void zk::add_kernel<zk::RingFq2<12, 1> >(int const*, int const*, int const*, int const*, "
      "int const*, int const*, unsigned char const*, int*, int*, int*, long, "

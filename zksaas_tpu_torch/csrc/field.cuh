@@ -645,6 +645,95 @@ ZK_HD InvParams<NL> inv_params_from(const uint32_t* host) {
     return I;
 }
 
+// ---------------------------------------------------------------------------
+// Field.rand's elements (fields/field.py): the ChaCha20 block function
+// (RFC 8439 section 2.3) with a 256-bit key drawn on the host, nonce 0 and
+// block counter 0, 1, 2, ...; its keystream read as little-endian 32-bit
+// words.  Element i takes words [2 NL i, 2 NL (i + 1)): lo the first NL,
+// hi the next NL, each word a 32-bit limb (two 16-bit limbs, low half
+// first), and is hi R + lo mod p = mont(hi, R^2 mod p) + mont(lo, R mod p).
+// ---------------------------------------------------------------------------
+
+struct ChaChaKey {
+    uint32_t w[8];
+};
+
+ZK_HD uint32_t rotl32(uint32_t x, int r) { return (x << r) | (x >> (32 - r)); }
+
+ZK_HD void chacha_quarter(uint32_t& a, uint32_t& b, uint32_t& c, uint32_t& d) {
+    a += b; d = rotl32(d ^ a, 16);
+    c += d; b = rotl32(b ^ c, 12);
+    a += b; d = rotl32(d ^ a, 8);
+    c += d; b = rotl32(b ^ c, 7);
+}
+
+// The 16 keystream words of block `counter`.
+ZK_HD void chacha20_block(const ChaChaKey& key, uint32_t counter, uint32_t* out) {
+    uint32_t s[16] = {0x61707865u, 0x3320646eu, 0x79622d32u, 0x6b206574u};
+#pragma unroll
+    for (int j = 0; j < 8; j++) s[4 + j] = key.w[j];
+    s[12] = counter;
+    s[13] = s[14] = s[15] = 0;
+    uint32_t x[16];
+#pragma unroll
+    for (int j = 0; j < 16; j++) x[j] = s[j];
+#pragma unroll
+    for (int r = 0; r < 10; r++) {
+        chacha_quarter(x[0], x[4], x[8], x[12]);
+        chacha_quarter(x[1], x[5], x[9], x[13]);
+        chacha_quarter(x[2], x[6], x[10], x[14]);
+        chacha_quarter(x[3], x[7], x[11], x[15]);
+        chacha_quarter(x[0], x[5], x[10], x[15]);
+        chacha_quarter(x[1], x[6], x[11], x[12]);
+        chacha_quarter(x[2], x[7], x[8], x[13]);
+        chacha_quarter(x[3], x[4], x[9], x[14]);
+    }
+#pragma unroll
+    for (int j = 0; j < 16; j++) out[j] = x[j] + s[j];
+}
+
+// R^2 mod p from the inverse's R^3 mod p: mont(R^3, 1).
+template <int NL>
+ZK_HD Fq<NL> r2_from(const FieldParams<NL>& F, const InvParams<NL>& I) {
+    Fq<NL> r3, one = fq_zero<NL>();
+#pragma unroll
+    for (int i = 0; i < NL; i++) r3.v[i] = I.r3[i];
+    one.v[0] = 1;
+    return fq_mul(r3, one, F);
+}
+
+// Element i of the stream.  Its 2 NL words start at word 2 NL i, which is
+// a multiple of 8, so they lie in one block at offset 0 (NL = 8) or in two
+// blocks from offset 0 or 8 (NL = 12); both blocks are computed and the
+// words picked with constant indices, so the keystream stays in registers.
+template <int NL>
+ZK_HD Fq<NL> rand_element(const ChaChaKey& key, long i, const FieldParams<NL>& F,
+                          const Fq<NL>& r2) {
+    constexpr int W = 2 * NL;
+    static_assert(W % 8 == 0, "an element starts on a half block");
+    constexpr int NB = W % 16 == 0 ? W / 16 : W / 16 + 1;
+    uint32_t ks[16 * NB];
+    const uint64_t w0 = (uint64_t)W * (uint64_t)i;
+#pragma unroll
+    for (int b = 0; b < NB; b++) chacha20_block(key, (uint32_t)(w0 / 16 + b), ks + 16 * b);
+    Fq<NL> lo, hi;
+    if constexpr (W % 16 == 0) {
+#pragma unroll
+        for (int j = 0; j < NL; j++) {
+            lo.v[j] = ks[j];
+            hi.v[j] = ks[NL + j];
+        }
+    } else {
+        const bool half = (w0 % 16) != 0;  // the element starts at word 8 of its block
+#pragma unroll
+        for (int j = 0; j < NL; j++) {
+            lo.v[j] = half ? ks[8 + j] : ks[j];
+            hi.v[j] = half ? ks[8 + NL + j] : ks[NL + j];
+        }
+    }
+    return cc_add(fq_mul(hi, r2, F), fq_mul(lo, fq_one(F), F), F);
+}
+
 // The coordinate rings that are built, by the kernels' (limbs, nr, ncoord)
 // arguments: G1 over 8- or 12-limb Fq (any nr), G2 over Fq2 with (8, -1)
 // BN254, (12, -1) BLS12-381, (12, -5) BLS12-377.  -1 for any other.

@@ -75,6 +75,16 @@ static int montmul_loop(const int32_t* a, const int32_t* b, int32_t* out, long n
     return 0;
 }
 
+template <int NL>
+static int field_rand_loop(const uint32_t* key, int32_t* out, long n, const uint32_t* params) {
+    const FieldParams<NL> F = params_from<NL>(params);
+    const Fq<NL> r2 = r2_from(F, inv_params_from<NL>(params));
+    ChaChaKey k;
+    for (int j = 0; j < 8; j++) k.w[j] = key[j];
+    for (long i = 0; i < n; i++) store16(out + i * 2 * NL, rand_element<NL>(k, i, F, r2));
+    return 0;
+}
+
 // Calls fn with a value of the ring type that (nl, nr, ncoord) names.
 template <class Fn>
 static int with_ring(int nl, int nr, int ncoord, Fn&& fn) {
@@ -94,6 +104,12 @@ int zkc_montmul(int nl, const int32_t* a, const int32_t* b, int32_t* out, long n
                 const uint32_t* params) {
     if (nl == 8) return montmul_loop<8>(a, b, out, n, params);
     if (nl == 12) return montmul_loop<12>(a, b, out, n, params);
+    return NOT_BUILT;
+}
+
+int zkc_field_rand(int nl, const uint32_t* key, int32_t* out, long n, const uint32_t* params) {
+    if (nl == 8) return field_rand_loop<8>(key, out, n, params);
+    if (nl == 12) return field_rand_loop<12>(key, out, n, params);
     return NOT_BUILT;
 }
 

@@ -105,6 +105,20 @@
 //   are sorted independently, so a batch of parties is one call.  Keys
 //   compare as unsigned 32-bit values.
 //
+// Kernel 10, field_rand: replaces zksaas_tpu/fields/jfield.py:389
+//   (Field.rand's jax.random.bits on the device; the port drew the limbs on
+//   the CPU and copied them), the dealer's masks and the kings' pads, 28 m
+//   + 34 elements a proof.  Bound: the 2 NL int32 limbs written a lane
+//   (64 B at 8 limbs, 96 B at 12) against 1-2 ChaCha20 blocks (some 1,000
+//   32-bit additions, xors and rotates each) and two Montgomery products,
+//   so the integer units set the floor.  Design: one thread an element
+//   (field.cuh::rand_element) computes the one (8 limbs) or two (12
+//   limbs; two neighbouring lanes share one of their blocks, so a quarter
+//   of the blocks are computed twice) blocks its words lie in from the
+//   key, passed by value, and reduces them in registers; the block stages its rows in shared memory
+//   and writes them out as consecutive 16-byte words, so the stores are
+//   coalesced.  Nothing is read from device memory.
+//
 // Every entry point launches on the caller's stream, allocates nothing
 // and returns cudaGetLastError() so the wrapper can raise.
 
@@ -135,6 +149,48 @@ int launch_montmul(const int32_t* a, const int32_t* b, int32_t* out, long n,
     montmul_kernel<NL><<<blocks(n, 256), 256, 0, s>>>(a, b, out, n, params_from<NL>(params));
     return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// kernel 10: field_rand (field.cuh::rand_element), one thread an element;
+// in namespace zk, as the point and ring kernels, so profiles count it
+// among the port's kernels
+// ---------------------------------------------------------------------------
+
+namespace zk {
+
+constexpr int RAND_THREADS = 128;
+
+template <int NL>
+__global__ void __launch_bounds__(RAND_THREADS)
+field_rand_kernel(ChaChaKey key, int32_t* __restrict__ out, long n, FieldParams<NL> F,
+                  Fq<NL> r2) {
+    constexpr int ROW = NL / 2;  // 16-byte words a row of 2 NL 16-bit limbs
+    __shared__ int4 tile[RAND_THREADS * ROW];
+    const long base = (long)blockIdx.x * RAND_THREADS, i = base + threadIdx.x;
+    if (i < n) vstore(reinterpret_cast<int32_t*>(tile + threadIdx.x * ROW),
+                      rand_element<NL>(key, i, F, r2));
+    __syncthreads();
+    const long rows = n - base < RAND_THREADS ? n - base : RAND_THREADS;
+    int4* dst = reinterpret_cast<int4*>(out + base * 2 * NL);
+    for (long q = threadIdx.x; q < rows * ROW; q += RAND_THREADS) dst[q] = tile[q];
+}
+
+template <int NL>
+int launch_field_rand(const uint32_t* key, int32_t* out, long n, const uint32_t* params,
+                      cudaStream_t s) {
+    ChaChaKey k;
+    for (int j = 0; j < 8; j++) k.w[j] = key[j];
+    const FieldParams<NL> F = params_from<NL>(params);
+    field_rand_kernel<NL><<<blocks(n, RAND_THREADS), RAND_THREADS, 0, s>>>(
+        k, out, n, F, r2_from(F, inv_params_from<NL>(params)));
+    return (int)cudaGetLastError();
+}
+
+}  // namespace zk
+
+namespace {
 
 // ---------------------------------------------------------------------------
 // kernel 9: LSD radix sort (field.cuh: RADIX_*), one block of RADIX_THREADS
@@ -446,6 +502,15 @@ int zk_point_madd_if(int nl, int nr, int ncoord, const int32_t* x1, const int32_
 int zk_empty(void* stream) {
     empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
     return (int)cudaGetLastError();
+}
+
+// Field.rand's n elements from the host's 8-word `key` (zk::rand_element).
+int zk_field_rand(int nl, const uint32_t* key, int32_t* out, long n, const uint32_t* params,
+                  void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (nl == 8) return launch_field_rand<8>(key, out, n, params, s);
+    if (nl == 12) return launch_field_rand<12>(key, out, n, params, s);
+    return NOT_BUILT;
 }
 
 long zk_sort_u32_scratch_words(long total, long n) { return radix_scratch_words(total, n); }

@@ -8,9 +8,12 @@ residue (< p), so values are bit-equal to the reference's.
 
 `mul` is kernel 1 (fields/montmul.py): a hand-written CUDA kernel for CUDA
 tensors, its plain PyTorch version for CPU tensors.  add/sub/neg and the
-compositions (inv, batch_inv, sum, rand) are plain tensor code on either
-device.  Randomness comes from explicit torch.Generators, drawn on the CPU
-and moved, so a seed gives the same elements on every device.
+compositions (inv, batch_inv, sum) are plain tensor code on either device.
+`rand` takes an explicit CPU torch.Generator, from which it draws only a
+256-bit ChaCha20 key; the elements come from the key's keystream, made and
+reduced on the device by one kernel (csrc/kernels.cu::zk_field_rand) for
+CUDA tensors and by its plain PyTorch version `rand_plain` for CPU
+tensors, so a seed gives the same elements on every device.
 """
 
 from __future__ import annotations
@@ -20,11 +23,96 @@ import functools
 import numpy as np
 import torch
 
+from .. import kernels
 from ..device import resolve_device
 from ..utils.trace import span
 from .limbs import M16, normalize
-from .montmul import _consts, montmul
+from .montmul import _consts, montmul, montmul_plain
 from .spec import LIMB_BITS, LIMB_MASK, FieldSpec
+
+
+M32 = 0xFFFFFFFF
+_SIGMA = (0x61707865, 0x3320646E, 0x79622D32, 0x6B206574)  # "expand 32-byte k"
+
+
+def _rotl(x, r):
+    return ((x << r) & M32) | (x >> (32 - r))
+
+
+def _quarter(a, b, c, d):
+    a = (a + b) & M32
+    d = _rotl(d ^ a, 16)
+    c = (c + d) & M32
+    b = _rotl(b ^ c, 12)
+    a = (a + b) & M32
+    d = _rotl(d ^ a, 8)
+    c = (c + d) & M32
+    b = _rotl(b ^ c, 7)
+    return a, b, c, d
+
+
+def chacha20_keystream(key, nblocks: int):
+    """The first `nblocks` ChaCha20 blocks (RFC 8439 section 2.3) of an
+    8-word key (int64 tensor of values below 2^32), nonce 0, counter 0, 1,
+    ...: (nblocks, 16) int64 words on the key's device.  The state's rows
+    a, b, c, d (4 words each, one column per block) take a column round,
+    then a diagonal one as the column round of b, c, d rotated by 1, 2, 3."""
+    dev = key.device
+    init = torch.empty((16, nblocks), dtype=torch.int64, device=dev)
+    init[:4] = torch.tensor(_SIGMA, dtype=torch.int64, device=dev).view(4, 1)
+    init[4:12] = key.view(8, 1)
+    init[12] = torch.arange(nblocks, dtype=torch.int64, device=dev)
+    init[13:] = 0
+    a, b, c, d = init.view(4, 4, nblocks).unbind(0)
+    for _ in range(10):
+        a, b, c, d = _quarter(a, b, c, d)
+        a, b, c, d = _quarter(a, b.roll(-1, 0), c.roll(-2, 0), d.roll(-3, 0))
+        b, c, d = b.roll(1, 0), c.roll(2, 0), d.roll(3, 0)
+    return ((torch.cat([a, b, c, d]) + init) & M32).t()
+
+
+def rand_blocks(spec, n: int) -> int:
+    """ChaCha20 blocks of n elements of `spec` (K words each); raises past
+    the 32-bit block counter."""
+    nblocks = -(-n * spec.nlimbs // 16)
+    if nblocks > 1 << 32:
+        raise ValueError(f"{n} elements of {spec.name} need {nblocks} ChaCha20 blocks, "
+                         "more than the 2^32 one key gives")
+    return nblocks
+
+
+def rand_plain(spec, key, shape, device="cpu"):
+    """Plain version of zk_field_rand on `device`: element i from words [K i,
+    K (i + 1)) of the key's keystream, each word two 16-bit limbs (low half
+    first), lo the first K limbs and hi the next K, reduced to hi R + lo mod
+    p as two Montgomery products (hi R^2 R^-1 and lo (R mod p) R^-1, exact
+    for a raw operand below R) and an add, so the mod-p bias is ~2^-256."""
+    shape = tuple(shape)
+    k = spec.nlimbs
+    n = int(np.prod(shape, dtype=np.int64))
+    words = chacha20_keystream(key.to(device), rand_blocks(spec, n)).reshape(-1)[: n * k]
+    raw = torch.stack([words & LIMB_MASK, words >> LIMB_BITS], -1).reshape(shape + (2 * k,))
+    lo, hi = raw[..., :k], raw[..., k:]
+    limbs = lambda x: torch.tensor(_int_to_limbs(x, k), dtype=torch.int64, device=device)
+    hi_red = montmul_plain(spec, hi, limbs(spec.r2_mod_p))  # hi * R mod p
+    lo_red = montmul_plain(spec, lo, limbs(spec.r_mod_p))  # lo mod p
+    return add64(spec, hi_red, lo_red).int()
+
+
+def _rand_cuda(spec, key, shape, device):
+    """zk_field_rand: the elements of `key` made on the card."""
+    shape = tuple(shape)
+    n = int(np.prod(shape, dtype=np.int64))
+    rand_blocks(spec, n)
+    out = torch.empty(shape + (spec.nlimbs,), dtype=torch.int32, device=device)
+    if n == 0:
+        return out
+    words = key.numpy().astype(np.uint32)  # read by the launcher, on the host
+    nl, _, prm = kernels.field_args(spec)
+    rc = kernels.cuda_lib().zk_field_rand(nl, words.ctypes.data, out.data_ptr(), n, prm,
+                                          kernels.stream_of(out))
+    kernels.check(kernels.FIELD_RAND, rc, n, spec)
+    return out
 
 
 def _int_to_limbs(x: int, k: int) -> list[int]:
@@ -81,7 +169,7 @@ class Field:
         self.p = spec.p
         self.k = spec.nlimbs
         self.r_mod_p = spec.r_mod_p
-        self.rand_bytes = 0  # bytes rand() has drawn on the host (and copied to the device)
+        self.rand_bytes = 0  # bytes rand() has drawn on the host: 64 (a key) a call
         e = spec.p - 2
         self._inv_bits = [(e >> i) & 1 for i in reversed(range(e.bit_length()))]
 
@@ -254,24 +342,20 @@ class Field:
 
     @span("zk.rand")
     def rand(self, gen: torch.Generator, shape=(), device="cuda"):
-        """Uniform field elements in Montgomery form: 2K random 16-bit limbs
-        (twice the modulus width) reduced to hi R + lo mod p, as
-        jfield.py:388-403 does, so the mod-p bias is ~2^-256.  Both halves
-        are Montgomery products (hi R^2 R^-1 and lo (R mod p) R^-1), exact
-        for a raw operand below R.  `gen` is a CPU generator; `rand_bytes`
-        counts the int32 limbs it draws, 8 K bytes an element."""
+        """Uniform field elements in Montgomery form, as jfield.py:388-403
+        draws them (2K random 16-bit limbs reduced mod p).  `gen` is a CPU
+        generator; the only draw from it is a 256-bit ChaCha20 key (8 words
+        of 32 bits, counted in `rand_bytes`), so it advances alike on every
+        device.  The elements are the key's keystream reduced
+        (`rand_plain`), made by zk_field_rand for a CUDA device."""
         dev = resolve_device(device)
-        shape = tuple(shape)
-        raw = torch.randint(0, 1 << 16, shape + (2 * self.k,), generator=gen,
-                            dtype=torch.int32)
-        self.rand_bytes += raw.numel() * raw.element_size()
-        raw = raw.to(dev)
-        lo, hi = raw[..., : self.k], raw[..., self.k :]
-        r2 = torch.tensor(_int_to_limbs(self.spec.r2_mod_p, self.k), dtype=torch.int32,
-                          device=dev)
-        hi_red = self.mul(hi, r2)  # hi * R mod p
-        lo_red = self.mul(lo, self.ones(device=dev))  # lo mod p
-        return self.add(hi_red, lo_red)
+        key = torch.randint(0, 1 << 32, (8,), generator=gen, dtype=torch.int64)
+        self.rand_bytes += key.numel() * key.element_size()
+        if dev.type == "cuda":
+            return _rand_cuda(self.spec, key, shape, dev)
+        if dev.type != "cpu":
+            raise ValueError(f"rand runs on cuda or cpu, not {dev}")
+        return rand_plain(self.spec, key, shape, dev)
 
 
 @functools.cache

@@ -4,7 +4,7 @@ The CUDA sources live in csrc/: field.cuh (the arithmetic, carry-chain Fq
 and the safegcd inverse included), add_group.cuh (the complete add, the
 k-fold double and the affine+affine add as programs for a group of lanes),
 kernels.cuh (the point and ring kernels as templates over the coordinate
-ring), kernels.cu (the C interface, montmul and the sort) and one
+ring), kernels.cu (the C interface, montmul, field_rand and the sort) and one
 ring_*.cu per coordinate ring.  They are compiled at first use with nvcc for sm_90a, one
 nvcc per source, all started together, and linked into one shared library
 with a plain C interface, loaded with ctypes, in build/<hash>/ (git-ignored),
@@ -17,12 +17,12 @@ BLS12-381 (12 limbs, nr = -1) and BLS12-377 (12 limbs, nr = -5);
 `field_args(spec)` gives a call's (limbs, nr, params).
 
 Each kernel has one `Kernel` record here.  Its wrapper (fields/montmul.py,
-curves/point_ops.py, fields/sortperm.py) calls `check`, which adds one to
+fields/field.py, curves/point_ops.py, fields/sortperm.py) calls `check`, which adds one to
 `launches` and to the spec's entry of `by_field`, and the launch's lanes to
 `elements`, where it launches the kernel and nowhere else, so a run can
 show which kernels, and which field instances of them, its path went
 through, and how much work they did.  A lane is one Montgomery product,
-one point (one point for each of k doublings of the k-fold double), one
+one element drawn (field_rand), one point (one point for each of k doublings of the k-fold double), one
 ring element or one sort key.
 """
 
@@ -93,8 +93,11 @@ POINT_MADD_IF = Kernel(
 SORT_U32 = Kernel(
     "sort_u32", "zksaas_tpu_torch/csrc/kernels.cu", "zksaas_tpu/fields/sortperm.py:77"
 )
+FIELD_RAND = Kernel(
+    "field_rand", "zksaas_tpu_torch/csrc/kernels.cu", "zksaas_tpu/fields/jfield.py:389"
+)
 KERNELS = (MONTMUL, POINT_ADD, POINT_ADD_IF, POINT_DOUBLE, RING_MUL, RING_INV, POINT_AADD,
-           POINT_MADD_IF, SORT_U32)
+           POINT_MADD_IF, SORT_U32, FIELD_RAND)
 
 
 def reset_launches() -> None:
@@ -186,6 +189,7 @@ def _headers() -> list:
 
 
 _POINT_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int]  # limbs, nr, ncoord
+_RAND_ARGS = [ctypes.c_int, _PTR, _PTR, ctypes.c_long, _PTR]  # limbs, key, out, n, params
 
 
 @functools.cache
@@ -207,10 +211,11 @@ def cuda_lib():
     L.zk_sort_u32.argtypes = [_PTR, _PTR, ctypes.c_long, ctypes.c_long, _PTR]
     L.zk_sort_u32_scratch_words.argtypes = [ctypes.c_long, ctypes.c_long]
     L.zk_sort_u32_scratch_words.restype = ctypes.c_long
+    L.zk_field_rand.argtypes = _RAND_ARGS + [_PTR]
     L.zk_empty.argtypes = [_PTR]
     for fn in (L.zk_montmul, L.zk_point_add, L.zk_point_add_if, L.zk_point_double,
                L.zk_ring_mul, L.zk_ring_inv, L.zk_point_aadd, L.zk_point_madd_if,
-               L.zk_sort_u32, L.zk_empty):
+               L.zk_sort_u32, L.zk_field_rand, L.zk_empty):
         fn.restype = ctypes.c_int
     return L
 
@@ -234,6 +239,7 @@ def host_core():
     L.zkc_point_aadd.argtypes = _POINT_ARGS + [_PTR] * 9 + [ctypes.c_long, _PTR]
     L.zkc_point_madd_if.argtypes = _POINT_ARGS + [_PTR] * 9 + [ctypes.c_long, _PTR]
     L.zkc_sort_u32.argtypes = [_PTR, ctypes.c_long, ctypes.c_long]
+    L.zkc_field_rand.argtypes = _RAND_ARGS
     return L
 
 

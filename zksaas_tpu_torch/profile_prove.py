@@ -105,7 +105,7 @@ def _kernel_label(mangled: str) -> str:
     if m:
         ring = f"Fq2[{m.group(2)}, nr -{m.group(3)}]" if m.group(1) else f"Fq[{m.group(2)}]"
         return f"{base}<{ring}, {m.group(4)}>" if m.group(4) else f"{base}<{ring}>"
-    m = re.search(r"montmul_kernelILi(\d+)E", mangled)
+    m = re.search(r"(?:montmul|field_rand)_kernelILi(\d+)E", mangled)
     return f"{base}<{m.group(1)}>" if m else base
 
 

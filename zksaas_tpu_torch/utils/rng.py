@@ -3,8 +3,10 @@
 `split(gen, n)` mirrors jax.random.split: n independent CPU generators,
 seeded from draws of `gen`, so every consumer of randomness takes its own
 stream and the draws do not depend on the order of unrelated calls.
-Draws are made on the CPU and moved to the device, so a seed gives the
-same values on every device.
+The generators live on the CPU and advance alike whatever the device:
+Field.rand draws only a ChaCha20 key from one and makes its elements on
+the tensors' device (fields/field.py), so a seed gives the same values on
+every device.
 """
 
 from __future__ import annotations
